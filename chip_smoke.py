@@ -5,7 +5,8 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: builds K1 (csrc/transduce.cu) from the repository's sources;
+2. build: builds K1 (csrc/transduce.cu), KF and KP from the
+   repository's sources, all at once, one ``nvcc`` each;
 3. kernel vs plain: K1 and the plain PyTorch machine on the same CUDA
    tensors (full-size synthetic model, B=4096 x L=256) must agree
    exactly; both are timed in turns (plain, kernel, kernel, plain);
@@ -16,21 +17,36 @@ Phases, in order; any failure raises and the script exits nonzero:
    then K1 and the plain machine run the wave's own tensors, must agree
    exactly and are timed in turns;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
-   through the same path.
+   through the same path;
+6. the probe kernels: KF (``csrc/hot_fetch.cu``, select on and off) and
+   KP (``csrc/micro_fused.cu``) at the TPU probes' default size
+   (B=16384, H=384, K=64) on the probes' seeded inputs plus
+   out-of-range lanes must equal their plain versions exactly; both
+   are timed in turns; then the three probe scripts
+   (``datok_tpu_torch.bench_micro``) run once each, and each must have
+   launched its kernel;
+7. streaming at real size: a ~32 MB stream (about 2,000 documents of
+   1-16 KB, each ending in ``\\x04\\n``, and 16 documents of 0.5-1.5 MB
+   without EOT, which take the long path) through ``tokenize_stream``
+   (``long_strategy`` "auto" and "chained") and ``tokenize_reader``
+   (4 MB chunks); each output must be byte-equal to the native oracle
+   over the whole stream as one lane, and K1 must have launched.
 
 ``--profile`` adds a breakdown of the phase-4 wave after phase 4: each
 stage timed on the host clock between ``torch.cuda.synchronize()``
 calls (three repetitions after a warm-up), ``events_batch`` alone, and
 a ``torch.profiler`` table of one ``events_batch`` with the card's idle
-share.
+share; and after phase 7 a ``cProfile`` table of one more
+``tokenize_stream``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches on the main path, its largest error
-against the plain version (phases 3 and 4) and both times at the main
-path's shape.
+lists each kernel with its launches on its path (K1: phase 4's wave;
+KF and KP: their probe scripts), its largest error against the plain
+version and both times at its path's shape.
 """
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -57,6 +73,10 @@ DE_MODEL = os.environ.get("DATOK_DE_MODEL", "")
 SEED = 0
 CHECK_SHAPE = (4096, 256)  # (B, L) of the kernel-vs-plain phase
 WAVE_SHAPE = (32768, 1024)  # (B, L) of the main-path wave, bench.py:400-401
+PROBE_SHAPE = (16384, 384, 64)  # (B, H, K) defaults of the TPU probes
+# phase 7's stream: documents of 1-16 KB and long ones of 0.5-1.5 MB
+STREAM_DOCS = (2000, 1 << 10, 16 << 10)
+STREAM_LONG = (16, 1 << 19, 3 << 19)
 
 
 def cuda_ms(fn, n=1, warmup=0):
@@ -274,10 +294,222 @@ def profile_wave(dtt, kt, eng, texts, card, reps=3):
           f"({total:.3f} ms) [{card}]", flush=True)
 
 
+def probe_inputs(dev):
+    """KF's and KP's inputs at the probes' default size: the probes'
+    seeded planes, lanes and ring, with out-of-range values written
+    into some lanes (a = 0, negative, >= 256; h < 0, >= H)."""
+    from datok_tpu_torch.bench_micro.planes import (fetch_inputs,
+                                                    fetch_planes_from_numpy,
+                                                    fused_inputs,
+                                                    fused_planes_from_numpy)
+    B, H, _K = PROBE_SHAPE
+    planes, a, h = fetch_inputs(B, H)
+    rng = np.random.default_rng(SEED + 4)
+    odd = rng.choice(B, B // 16, replace=False)
+    a[odd[0::4]] = rng.choice([0, -3, 256, 1000], len(odd[0::4]))
+    h[odd[1::4]] = rng.choice([-1, H, H + 7], len(odd[1::4]))
+    _table, planes_i8, ring, h0 = fused_inputs(B, H)
+    ring[rng.random(ring.shape) < 1 / 32] = 0
+    ring[rng.random(ring.shape) < 1 / 64] = 300
+    h0[odd[2::4]] = -2
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return ((t(a), t(h), fetch_planes_from_numpy(planes, dev)),
+            (t(ring), fused_planes_from_numpy(planes_i8, dev), t(h0[None, :])))
+
+
+def device_us(fn, n=20):
+    """Device microseconds per call of ``fn`` (its kernels and copies),
+    from ``torch.profiler`` over ``n`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n
+
+
+def exact_err(x, y):
+    return max(int((p.long() - q.long()).abs().max()) for p, q in zip(x, y))
+
+
+def probe_phase(card, dev):
+    """Phase 6: KF (select on and off) and KP against their plain
+    versions on the same CUDA tensors, timed in turns; then the three
+    probe scripts once each, with the launch counts read around each.
+    Returns the kernels' entries of the final ``kernels`` line."""
+    from datok_tpu_torch.bench_micro import (micro_ablate, micro_fused,
+                                             micro_pallas)
+    from datok_tpu_torch.kernels import hot_fetch as hf
+    from datok_tpu_torch.kernels import micro_fused as mf
+
+    B, H, K = PROBE_SHAPE
+    fetch_args, fused_args = probe_inputs(dev)
+    cases = [  # (name, kernel, plain, lane-steps per call)
+        ("hot_fetch[select]", lambda: hf.hot_fetch(*fetch_args, 3, True),
+         lambda: hf.hot_fetch_plain(*fetch_args, 3, True), B),
+        ("hot_fetch[no_select]", lambda: hf.hot_fetch(*fetch_args, 3, False),
+         lambda: hf.hot_fetch_plain(*fetch_args, 3, False), B),
+        ("micro_fused", lambda: mf.micro_fused(*fused_args, K),
+         lambda: mf.micro_fused_plain(*fused_args, K), B * K),
+    ]
+    res = {}
+    for name, kern, plain, lane_steps in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = exact_err(got, want)
+        if err != 0:
+            raise RuntimeError(f"{name} differs from its plain version "
+                               f"(max abs err {err})")
+        # in turns: plain, kernel, kernel, plain
+        p1, _ = cuda_ms(plain, n=10, warmup=2)
+        k1, _ = cuda_ms(kern, n=100, warmup=2)
+        k2, _ = cuda_ms(kern, n=100, warmup=2)
+        p2, _ = cuda_ms(plain, n=10, warmup=2)
+        ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        res[name] = (err, ms, p_ms)
+        k_dev, p_dev = device_us(kern), device_us(plain)
+        print(f"probe {name}: B={B} H={H}{f' K={K}' if name == 'micro_fused' else ''}"
+              f", equal to its plain version (max abs err {err}); per call "
+              f"(CUDA events) kernel {k1:.4f} / {k2:.4f} ms (means of 100), "
+              f"plain {p1:.4f} / {p2:.4f} ms (means of 10); device time per "
+              f"call (torch.profiler) kernel {k_dev:.3f} us, plain {p_dev:.3f}"
+              f" us; ns_per_lane_step kernel {ms * 1e6 / lane_steps:.4f} "
+              f"(device {k_dev * 1e3 / lane_steps:.4f}), plain "
+              f"{p_ms * 1e6 / lane_steps:.4f} (device "
+              f"{p_dev * 1e3 / lane_steps:.4f}) [{card}]", flush=True)
+
+    # the probe scripts, each with its kernel's count read around it
+    launches = {}
+    for mod, counter in ((micro_pallas, hf.hot_fetch), (micro_fused, mf.micro_fused),
+                         (micro_ablate, hf.hot_fetch)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        counter.launches = 0
+        t0 = time.perf_counter()
+        mod.main()
+        launches[name] = counter.launches
+        if counter.launches < 1:
+            raise RuntimeError(f"{name}.main() launched no kernel")
+        print(f"probe script {name}: {counter.launches} launches, "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+
+    src = "datok_tpu_torch/csrc/"
+    rows = [("hot_fetch[select]", "hot_fetch.cu",
+             "bench_micro/micro_pallas.py:58", launches["micro_pallas"]),
+            ("micro_fused", "micro_fused.cu", "bench_micro/micro_fused.py:87",
+             launches["micro_fused"]),
+            ("hot_fetch[no_select]", "hot_fetch.cu",
+             "bench_micro/micro_ablate.py:133", launches["micro_ablate"])]
+    return [{"name": name, "route": "cuda", "source": src + source,
+             "replaces": replaces, "launches": n,
+             "max_abs_err": res[name][0], "ms": res[name][1],
+             "plain_ms": res[name][2]} for name, source, replaces, n in rows]
+
+
+def stream_text(tok, synth_text):
+    """Phase 7's ~32 MB stream: short documents ending in ``\\x04\\n``
+    with the long EOT-free ones among them, cut from a pool of seeded
+    synthetic text (generating 32 MB of it directly takes minutes)."""
+    rng = np.random.default_rng(SEED + 5)
+    # without the generator's own EOTs, so that documents keep their size
+    pool = "".join(synth_text(tok, 64, 1 << 16, seed=SEED + 6)).replace("\x04", " ")
+    n_docs, lo, hi = STREAM_DOCS
+    n_long, llo, lhi = STREAM_LONG
+
+    def cut(n):
+        o = int(rng.integers(0, len(pool) - n))
+        return pool[o:o + n]
+
+    docs = [cut(int(n)) + "\x04\n" for n in rng.integers(lo, hi + 1, n_docs)]
+    for i, n in zip(rng.choice(n_docs, n_long, replace=False),
+                    rng.integers(llo, lhi + 1, n_long)):
+        n = int(n)
+        body = "".join(cut(min(n, 1 << 16)) for _ in range(n // (1 << 16) + 1))
+        docs[i] = body[:n] + "\x04\n"
+    return "".join(docs)
+
+
+def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
+    """Phase 7: the stream through three surfaces, each byte-equal to
+    the native oracle over the whole stream as one lane; ``profile``
+    adds a host profile (cProfile) of one more ``tokenize_stream``."""
+    from datok_tpu.runtime.encode import text_to_codepoints
+    from datok_tpu.utils.native import native_encode
+    from datok_tpu_torch.runtime.machine import MAX_SEGMENT
+
+    tok = eng.tok
+    t0 = time.perf_counter()
+    text = stream_text(tok, synth_text)
+    data = text.encode("utf-8")
+    long_docs = sum(len(d) > MAX_SEGMENT for d in text.split("\x04"))
+    print(f"stream: {len(data)} bytes, {text.count(chr(4))} EOTs, {long_docs} "
+          f"documents over MAX_SEGMENT, made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    metas = native_encode(eng.encoder, data)[1]
+    ref = dtt.native_transduce_events(tok, metas, as_array=True)
+    if ref is None:
+        raise RuntimeError("native oracle unavailable")
+    w = dtt.NativeWriter(dtt.SIMPLE)
+    w.feed(ref, text_to_codepoints(text))
+    want = w.getvalue()
+    print(f"stream: native oracle (one lane) {len(data) / (time.perf_counter() - t0) / 1e6:.2f}"
+          " MB/s on the host", flush=True)
+
+    surfaces = [
+        ("tokenize_stream auto", lambda w: dtt.tokenize_stream(
+            tok, text, w, engine=eng, long_strategy="auto")),
+        ("tokenize_stream chained", lambda w: dtt.tokenize_stream(
+            tok, text, w, engine=eng, long_strategy="chained")),
+        ("tokenize_reader 4 MB chunks", lambda w: dtt.tokenize_reader(
+            tok, io.BytesIO(data), w, engine=eng, chunk_bytes=4 << 20)),
+    ]
+    for name, run in surfaces:
+        kt.transduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(dtt.NativeWriter(dtt.SIMPLE)).getvalue()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kt.transduce.launches
+        if launches < 1:
+            raise RuntimeError(f"{name}: K1 was not launched")
+        if got != want:
+            i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                     min(len(got), len(want)))
+            raise RuntimeError(f"{name}: output differs from the native "
+                               f"oracle at character {i}: {got[i - 40:i + 40]!r}"
+                               f" vs {want[i - 40:i + 40]!r}")
+        print(f"stream {name}: {len(data) / wall / 1e6:.2f} MB/s ({len(data)} "
+              f"bytes in {wall:.3f} s), K1 launches {launches}, byte-equal to "
+              f"the native oracle [{card}]", flush=True)
+    if profile:
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile()
+        prof.enable()
+        surfaces[0][1](dtt.NativeWriter(dtt.SIMPLE)).getvalue()
+        torch.cuda.synchronize()
+        prof.disable()
+        print("profile: host time of one tokenize_stream (auto), by "
+              f"cumulative time [{card}]", flush=True)
+        pstats.Stats(prof, stream=sys.stdout).sort_stats("cumulative").print_stats(25)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="break the phase-4 wave down by stage")
+                    help="break the phase-4 wave down by stage and profile "
+                         "one stream on the host")
     opts = ap.parse_args()
 
     # 1. device
@@ -298,16 +530,19 @@ def main():
     from datok_tpu_torch.runtime.machine import run_machine
     from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
 
-    # 2. build
+    # 2. build: K1, KF and KP at once, one nvcc each
     t0 = time.perf_counter()
-    build.load_cuda()
-    print(f"build: K1 built and loaded in {time.perf_counter() - t0:.2f} s",
+    build_s = build.build_all(build.CUDA_LIBS)
+    for spec in build.CUDA_LIBS:
+        build.load(spec)
+    print(f"build: {', '.join(f'{k} {v:.2f} s' for k, v in build_s.items())}"
+          f" (in parallel; {time.perf_counter() - t0:.2f} s with loading)",
           flush=True)
-    log = os.path.join(build.BUILD_DIR, "transduce.log")
-    if os.path.exists(log):
-        for line in open(log):
-            if "registers" in line or "spill" in line:
-                print("build:", line.strip(), flush=True)
+    for spec in build.CUDA_LIBS:
+        if os.path.exists(spec.log):
+            for line in open(spec.log):
+                if "registers" in line or "spill" in line:
+                    print(f"build: {spec.name}:", line.strip(), flush=True)
 
     # 3. kernel vs plain on the same CUDA tensors
     t0 = time.perf_counter()
@@ -358,6 +593,12 @@ def main():
     else:
         print("DE model: skipped, DATOK_DE_MODEL names no file", flush=True)
 
+    # 6. the probe kernels and their scripts
+    probes = probe_phase(card, torch.device("cuda"))
+
+    # 7. streaming at real size
+    stream_phase(dtt, kt, eng, card, synth_text, opts.profile)
+
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
     print(json.dumps({"kernels": [{
@@ -369,7 +610,7 @@ def main():
         "max_abs_err": max(err3, err4),
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}), flush=True)
+    }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -12,6 +12,7 @@ imports jax.
     tok = load_tokenizer_file("tokenizer_de.matok")
     eng = BatchEngine(tok, device="cuda")
     outs = eng.tokenize_batch(["Der alte Mann.", "..."])
+    out = tokenize_stream(tok, stream_text, engine=eng).getvalue()
 """
 
 from datok_tpu.fsa.double_array import DaTokenizer, load_datok_file
@@ -26,6 +27,7 @@ from datok_tpu.runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
 from datok_tpu.utils.native import NativeWriter, native_transduce_events
 
 from .runtime.engine import BatchEngine
+from .runtime.pipeline import tokenize_reader, tokenize_stream
 
 __all__ = [
     "BatchEngine",
@@ -44,6 +46,8 @@ __all__ = [
     "NEWLINE_AFTER_EOT",
     "SIMPLE",
     "transduce",
+    "tokenize_stream",
+    "tokenize_reader",
     "EV_TOKEN",
     "EV_SENT",
     "EV_TEXT",

@@ -1,11 +1,15 @@
 """Build the port's native code from the sources in ``csrc/``.
 
-K1 is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds).  The host build of K1's step header is compiled
-with ``g++`` for the tests.  Both go into ``datok_tpu_torch/_build/``
-at first use and are rebuilt when a source is newer than the library.
-A failed build raises: there is no fallback.
+Each library is a :class:`Lib` spec: the source it compiles, the
+headers it depends on, its entry symbols with their ``ctypes`` argument
+types, and whether ``nvcc`` or ``g++`` builds it.  The CUDA libraries
+(K1, KF, KP) are compiled with ``nvcc`` for ``sm_90a`` into shared
+libraries with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The host builds of the kernels'
+per-lane headers are compiled with ``g++`` for the tests.  All go into
+``datok_tpu_torch/_build/`` at first use and are rebuilt when a source
+is newer than the library.  A failed build raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -15,24 +19,79 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-_STEP_H = os.path.join(CSRC, "transduce_step.cuh")
-CUDA_SOURCES = [os.path.join(CSRC, "transduce.cu"), _STEP_H]
-HOST_SOURCES = [os.path.join(CSRC, "transduce_host.cpp"), _STEP_H]
-
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+
+
+@dataclass(frozen=True)
+class Lib:
+    """One shared library: ``sources[0]`` is compiled, the rest are the
+    headers it includes; ``entries`` maps each exported symbol to its
+    argument types (every entry returns ``int``)."""
+
+    name: str
+    sources: Tuple[str, ...]
+    entries: Tuple[Tuple[str, Tuple], ...]
+    cuda: bool
+
+    @property
+    def path(self) -> str:
+        return os.path.join(BUILD_DIR, f"libdt_{self.name}.so")
+
+    @property
+    def log(self) -> str:
+        """The compiler's report (``-Xptxas -v``: registers, spills)."""
+        return os.path.join(BUILD_DIR, f"{self.name}.log")
+
+
+def _src(*names: str) -> Tuple[str, ...]:
+    return tuple(os.path.join(CSRC, n) for n in names)
+
+
+# table, n_cells, S, max_sym, eps, unknown, identity, meta_T, L, B,
+# lengths, entries, stops, max_steps, events, counts, bad, state, steps
+_TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _i32,
+                   _p, _p, _p, _i32, _p, _p, _p, _p, _p)
+# a, h, planes, H, n_planes, select, B, out
+_HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)
+# ring, R, B, planes, H, K, h0, ys, h_out
+_MICRO_FUSED_ARGS = (_p, _i32, _i32, _p, _i32, _i32, _p, _p, _p)
+
+TRANSDUCE = Lib("transduce", _src("transduce.cu", "transduce_step.cuh"),
+                (("dt_transduce_launch", _TRANSDUCE_ARGS + (_p,)),), True)
+TRANSDUCE_HOST = Lib(
+    "transduce_host", _src("transduce_host.cpp", "transduce_step.cuh"),
+    (("dt_transduce_host", _TRANSDUCE_ARGS),), False)
+HOT_FETCH = Lib("hot_fetch", _src("hot_fetch.cu", "hot_fetch_lane.cuh"),
+                (("dt_hot_fetch_launch", _HOT_FETCH_ARGS + (_p,)),), True)
+MICRO_FUSED = Lib(
+    "micro_fused", _src("micro_fused.cu", "micro_fused_lane.cuh"),
+    (("dt_micro_fused_launch", _MICRO_FUSED_ARGS + (_p,)),), True)
+MICRO_HOST = Lib(
+    "micro_host",
+    _src("micro_host.cpp", "hot_fetch_lane.cuh", "micro_fused_lane.cuh"),
+    (("dt_hot_fetch_host", _HOT_FETCH_ARGS),
+     ("dt_micro_fused_host", _MICRO_FUSED_ARGS)), False)
+
+CUDA_LIBS = (TRANSDUCE, HOT_FETCH, MICRO_FUSED)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _stale(lib: str, sources: List[str]) -> bool:
+def _stale(lib: str, sources: Sequence[str]) -> bool:
     if not os.path.exists(lib):
         return True
     return os.path.getmtime(lib) < max(os.path.getmtime(s) for s in sources)
@@ -43,7 +102,7 @@ def _compile(cmd: List[str], src: str, lib: str) -> str:
     file, so a concurrent loader never sees half a library); returns
     the compiler's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.tmp{os.getpid()}"
+    tmp = f"{lib}.tmp{os.getpid()}.{threading.get_ident()}"
     r = subprocess.run([*cmd, "-o", tmp, src], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(
@@ -59,53 +118,51 @@ def _nvcc() -> str:
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
-        raise RuntimeError("nvcc not found: K1 cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
 
 
-def build_cuda() -> str:
-    """Build K1 if needed; returns the library path.  The compiler's
-    report (``-Xptxas -v``: registers, spills) is kept beside it in
-    ``transduce.log``."""
-    lib = os.path.join(BUILD_DIR, "libdt_transduce.so")
-    if _stale(lib, CUDA_SOURCES):
-        log = _compile([_nvcc(), *NVCC_FLAGS], CUDA_SOURCES[0], lib)
-        with open(os.path.join(BUILD_DIR, "transduce.log"), "w") as fh:
-            fh.write(log)
-    return lib
+def build(spec: Lib) -> str:
+    """Build ``spec`` if needed; returns the library path.  A CUDA
+    build keeps the compiler's report beside it (:attr:`Lib.log`)."""
+    if _stale(spec.path, spec.sources):
+        if spec.cuda:
+            log = _compile([_nvcc(), *NVCC_FLAGS], spec.sources[0], spec.path)
+            with open(spec.log, "w") as fh:
+                fh.write(log)
+        else:
+            _compile(["g++", *GXX_FLAGS], spec.sources[0], spec.path)
+    return spec.path
 
 
-def build_host() -> str:
-    """Build the host (g++) library of K1's step header; tests only."""
-    lib = os.path.join(BUILD_DIR, "libdt_transduce_host.so")
-    if _stale(lib, HOST_SOURCES):
-        _compile(["g++", "-O2", "-std=c++17", "-shared", "-fPIC"],
-                 HOST_SOURCES[0], lib)
-    return lib
+def build_all(specs: Sequence[Lib]) -> Dict[str, float]:
+    """Build several libraries at once, one compiler process each;
+    returns each library's seconds (about 0 when it was up to date)."""
+    def one(spec):
+        t0 = time.perf_counter()
+        build(spec)
+        return spec.name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(specs))) as ex:
+        return dict(ex.map(one, specs))
 
 
-def _load(path: str, fn: str, with_stream: bool) -> ctypes.CDLL:
+def load(spec: Lib) -> ctypes.CDLL:
+    """The library of ``spec``, built from ``csrc/`` at first use, with
+    its entries' argument types set.  Once loaded, a library is not
+    checked again in this process: the wrappers call this at every
+    launch, and the mtime check costs file-system calls."""
+    lib = _loaded.get(spec.name)
+    if lib is not None:
+        return lib
+    path = build(spec)
     with _lock:
-        lib = _loaded.get(path)
+        lib = _loaded.get(spec.name)
         if lib is None:
             lib = ctypes.CDLL(path)
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-            f = getattr(lib, fn)
-            f.restype = ctypes.c_int
-            # table, n_cells, S, max_sym, eps, unknown, identity, meta_T,
-            # L, B, lengths, entries, stops, max_steps, events, counts,
-            # bad, state, steps[, stream]
-            f.argtypes = ([p, i64, i32, i32, i32, i32, i32, p, i32, i32, p,
-                           p, p, i32, p, p, p, p, p]
-                          + ([p] if with_stream else []))
-            _loaded[path] = lib
+            for sym, argtypes in spec.entries:
+                f = getattr(lib, sym)
+                f.restype = ctypes.c_int
+                f.argtypes = list(argtypes)
+            _loaded[spec.name] = lib
         return lib
-
-
-def load_cuda() -> ctypes.CDLL:
-    """K1's library, built from ``csrc/`` at first use."""
-    return _load(build_cuda(), "dt_transduce_launch", with_stream=True)
-
-
-def load_host() -> ctypes.CDLL:
-    return _load(build_host(), "dt_transduce_host", with_stream=False)

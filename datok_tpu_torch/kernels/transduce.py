@@ -78,7 +78,7 @@ def transduce(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"K1 runs on CUDA devices, not {dev}")
     if tb.kind != "MATOK":
         raise ValueError("K1 takes the dense matrix layout (tok.to_matrix())")
-    lib = build.load_cuda()
+    lib = build.load(build.TRANSDUCE)
     outs = _outputs(B, max_steps, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -103,7 +103,7 @@ def transduce_host(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
     L, B = _check(tb, meta_T, lengths, entries, stops, max_steps)
     if meta_T.device.type != "cpu" or tb.kind != "MATOK":
         raise ValueError("the host build takes CPU tensors of a matrix model")
-    lib = build.load_host()
+    lib = build.load(build.TRANSDUCE_HOST)
     outs = _outputs(B, max_steps, meta_T.device)
     rc = lib.dt_transduce_host(
         *_args(tb, meta_T, lengths, entries, stops, max_steps, outs)

@@ -86,15 +86,20 @@ def _abbreviations(n: int, rng: random.Random) -> List[str]:
     return sorted(out)
 
 
-def synth_automaton(n_abbrev: int, seed: int = 0):
-    """The model as an :class:`Automaton`, plus its abbreviation list."""
+def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
+    """The model as an :class:`Automaton`, plus its abbreviation list.
+
+    ``eot=False`` leaves ``\\x04`` out of sigma (one column fewer): it
+    then reads as the identity symbol, inside words and at the root,
+    like any other character the model does not know."""
     rng = random.Random(seed)
     abbrevs = _abbreviations(n_abbrev, rng)
     abbrev_set = set(abbrevs)
     prefixes = sorted({a[:i] for a in abbrevs for i in range(1, len(a) + 1)})
     node = {p: _N_FIXED + 1 + i for i, p in enumerate(prefixes)}
 
-    sym = {ch: TOKENEND + 1 + i for i, ch in enumerate(SIGMA)}
+    sigma = SIGMA if eot else SIGMA.replace(_EOT, "")
+    sym = {ch: TOKENEND + 1 + i for i, ch in enumerate(sigma)}
     S = _N_FIXED + len(prefixes)
     auto = Automaton()
     auto.epsilon, auto.unknown, auto.identity = EPS, UNKNOWN, IDENTITY
@@ -123,7 +128,7 @@ def synth_automaton(n_abbrev: int, seed: int = 0):
         for ch in cs:
             arc(src, sym[ch], dst)
 
-    for ch in _WS + _EOT:
+    for ch in _WS + (_EOT if eot else ""):
         arc(ROOT, sym[ch], ROOT, nontoken=True)
     for ch in LETTERS:
         arc(ROOT, sym[ch], node.get(ch, WORD))
@@ -178,9 +183,11 @@ def synth_automaton(n_abbrev: int, seed: int = 0):
     return auto, abbrevs
 
 
-def synth_tokenizer(n_abbrev: int = DE_N_ABBREV, seed: int = 0) -> MatrixTokenizer:
-    """Deterministic matrix model; ``tok.abbrevs`` holds its vocabulary."""
-    auto, abbrevs = synth_automaton(n_abbrev, seed)
+def synth_tokenizer(n_abbrev: int = DE_N_ABBREV, seed: int = 0,
+                    eot: bool = True) -> MatrixTokenizer:
+    """Deterministic matrix model; ``tok.abbrevs`` holds its vocabulary.
+    ``eot=False`` builds it without ``\\x04`` in sigma."""
+    auto, abbrevs = synth_automaton(n_abbrev, seed, eot)
     tok = MatrixTokenizer.from_automaton(auto)
     tok.abbrevs = abbrevs
     return tok

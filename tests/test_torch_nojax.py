@@ -1,6 +1,6 @@
 """The port never imports jax: a fresh interpreter imports
-``datok_tpu_torch``, tokenizes a wave on the CPU and finds no jax
-module loaded."""
+``datok_tpu_torch`` with its stream and probe modules, tokenizes a wave
+and a stream on the CPU and finds no jax module loaded."""
 
 import os
 import subprocess
@@ -11,11 +11,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = """
 import sys
 import datok_tpu_torch as dtt
+import datok_tpu_torch.bench_micro.micro_ablate
+import datok_tpu_torch.bench_micro.micro_fused
+import datok_tpu_torch.bench_micro.micro_pallas
+import datok_tpu_torch.runtime.pipeline
 from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
 tok = synth_tokenizer(40, 2)
 texts = synth_text(tok, 8, 120, seed=2) + ["", "Mann.\\x04Frau."]
-out = dtt.BatchEngine(tok, device="cpu").tokenize_batch(texts)
+eng = dtt.BatchEngine(tok, device="cpu")
+out = eng.tokenize_batch(texts)
 assert out == [tok.tokenize(t) for t in texts]
+stream = "\\x04".join(texts)
+assert dtt.tokenize_stream(tok, stream, engine=eng).getvalue() == tok.tokenize(stream)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("ok")
