@@ -30,19 +30,38 @@ Phases, in order; any failure raises and the script exits nonzero:
    without EOT, which take the long path) through ``tokenize_stream``
    (``long_strategy`` "auto" and "chained") and ``tokenize_reader``
    (4 MB chunks); each output must be byte-equal to the native oracle
-   over the whole stream as one lane, and K1 must have launched.
+   over the whole stream as one lane, and K1 must have launched;
+8. the overlapped pipeline: phase 4's 32,768 texts as one ~30 MB
+   stream of documents ending in ``\\x04\\n`` through
+   ``tokenize_stream_pipelined`` (lanes=8192 with pack_len=0, and the
+   defaults) and the serial ``tokenize_stream``, then phase 7's stream
+   through ``tokenize_stream_pipelined`` (its long documents take the
+   long route inside the prep thread); each output byte-equal to the
+   native oracle, K1 launched, the stage seconds printed beside the
+   wall time;
+9. the corpus runner and the CLI: the model saved as a ``.matok``, 64
+   files cut from phase 8's documents (4 ending mid-word without EOT,
+   1 empty) through ``datok_tpu_torch.cli.main(["corpus", ...])``, each
+   output byte-equal to the native oracle; a second run must skip all
+   64 files and launch K1 zero times; and ``python -m
+   datok_tpu_torch.cli tokenize --batch --device cuda`` on one file in a
+   subprocess must print the oracle's bytes.
 
 ``--profile`` adds a breakdown of the phase-4 wave after phase 4: each
 stage timed on the host clock between ``torch.cuda.synchronize()``
 calls (three repetitions after a warm-up), ``events_batch`` alone, and
 a ``torch.profiler`` table of one ``events_batch`` with the card's idle
 share; and after phase 7 a ``cProfile`` table of one more
-``tokenize_stream``.
+``tokenize_stream``; and after phase 8, for one pipelined run, a
+``torch.profiler`` table with the card's idle share and a ``cProfile``
+table of all its threads, and the host time of the EOT split and the
+entry prediction alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches on its path (K1: phase 4's wave;
-KF and KP: their probe scripts), its largest error against the plain
-version and both times at its path's shape.
+lists each kernel with its launches on its paths (K1: phase 4's wave,
+phase 8's runs and phase 9's first corpus run; KF and KP: their probe
+scripts), its largest error against the plain version and both times
+at its path's shape.
 """
 
 import argparse
@@ -414,6 +433,46 @@ def probe_phase(card, dev):
              "plain_ms": res[name][2]} for name, source, replaces, n in rows]
 
 
+def native_oracle(dtt, eng, text):
+    """The native oracle over ``text`` as one lane, formatted by the
+    native writer: the ground truth of every stream and file."""
+    from datok_tpu.runtime.encode import text_to_codepoints
+    from datok_tpu.utils.native import native_encode
+
+    metas = native_encode(eng.encoder, text.encode("utf-8"))[1]
+    ref = dtt.native_transduce_events(eng.tok, metas, as_array=True)
+    if ref is None:
+        raise RuntimeError("native oracle unavailable")
+    w = dtt.NativeWriter(dtt.SIMPLE)
+    w.feed(ref, text_to_codepoints(text))
+    return w.getvalue()
+
+
+def check_same(name, got, want):
+    """Raise, naming the first differing character, unless equal."""
+    if got != want:
+        i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 min(len(got), len(want)))
+        raise RuntimeError(f"{name}: output differs from the native "
+                           f"oracle at character {i}: {got[i - 40:i + 40]!r}"
+                           f" vs {want[i - 40:i + 40]!r}")
+
+
+def host_profile(run, label, sort, card, n=25):
+    """``cProfile`` of one ``run()`` (from Python 3.12 on it sees every
+    thread, so a pipelined run's prep and fetch threads too)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    print(f"profile: host time of {label}, by {sort} time [{card}]", flush=True)
+    pstats.Stats(prof, stream=sys.stdout).sort_stats(sort).print_stats(n)
+
+
 def stream_text(tok, synth_text):
     """Phase 7's ~32 MB stream: short documents ending in ``\\x04\\n``
     with the long EOT-free ones among them, cut from a pool of seeded
@@ -440,9 +499,8 @@ def stream_text(tok, synth_text):
 def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
     """Phase 7: the stream through three surfaces, each byte-equal to
     the native oracle over the whole stream as one lane; ``profile``
-    adds a host profile (cProfile) of one more ``tokenize_stream``."""
-    from datok_tpu.runtime.encode import text_to_codepoints
-    from datok_tpu.utils.native import native_encode
+    adds a host profile (cProfile) of one more ``tokenize_stream``.
+    Returns the stream and its oracle output."""
     from datok_tpu_torch.runtime.machine import MAX_SEGMENT
 
     tok = eng.tok
@@ -454,13 +512,7 @@ def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
           f"documents over MAX_SEGMENT, made in {time.perf_counter() - t0:.2f} s",
           flush=True)
     t0 = time.perf_counter()
-    metas = native_encode(eng.encoder, data)[1]
-    ref = dtt.native_transduce_events(tok, metas, as_array=True)
-    if ref is None:
-        raise RuntimeError("native oracle unavailable")
-    w = dtt.NativeWriter(dtt.SIMPLE)
-    w.feed(ref, text_to_codepoints(text))
-    want = w.getvalue()
+    want = native_oracle(dtt, eng, text)
     print(f"stream: native oracle (one lane) {len(data) / (time.perf_counter() - t0) / 1e6:.2f}"
           " MB/s on the host", flush=True)
 
@@ -482,27 +534,215 @@ def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
         launches = kt.transduce.launches
         if launches < 1:
             raise RuntimeError(f"{name}: K1 was not launched")
-        if got != want:
-            i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
-                     min(len(got), len(want)))
-            raise RuntimeError(f"{name}: output differs from the native "
-                               f"oracle at character {i}: {got[i - 40:i + 40]!r}"
-                               f" vs {want[i - 40:i + 40]!r}")
+        check_same(name, got, want)
         print(f"stream {name}: {len(data) / wall / 1e6:.2f} MB/s ({len(data)} "
               f"bytes in {wall:.3f} s), K1 launches {launches}, byte-equal to "
               f"the native oracle [{card}]", flush=True)
     if profile:
-        import cProfile
-        import pstats
+        host_profile(lambda: surfaces[0][1](dtt.NativeWriter(dtt.SIMPLE)),
+                     "one tokenize_stream (auto)", "cumulative", card)
+    return text, want
 
-        prof = cProfile.Profile()
-        prof.enable()
-        surfaces[0][1](dtt.NativeWriter(dtt.SIMPLE)).getvalue()
+
+STAGES = ("encode", "dispatch", "fetch", "decode", "format")
+
+
+def stage_line(st, wall):
+    """The pipeline's stage seconds (those it timed), their sum and the
+    wall time."""
+    keys = [k for k in STAGES if k in st]
+    total = sum(st[k] for k in keys)
+    stages = ", ".join(f"{k} {st[k]:.3f}" for k in keys)
+    return (f"stages s: {stages}; sum {total:.3f} s vs wall {wall:.3f} s "
+            f"(sum / wall {total / wall:.2f})")
+
+
+def profile_overlap(run, n_bytes, card):
+    """One pipelined run under ``torch.profiler``: the device-time table
+    and the card's idle share of the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        prof.disable()
-        print("profile: host time of one tokenize_stream (auto), by "
-              f"cumulative time [{card}]", flush=True)
-        pstats.Stats(prof, stream=sys.stdout).sort_stats("cumulative").print_stats(25)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    print(avg.table(sort_by="self_device_time_total", row_limit=10), flush=True)
+    device_s = sum(e.self_device_time_total for e in avg
+                   if e.device_type == DeviceType.CUDA) / 1e6
+    print(f"profile overlap: device time {device_s:.3f} s in a {wall:.3f} s "
+          f"run ({n_bytes / wall / 1e6:.2f} MB/s under the profiler): card "
+          f"idle {100 * (1 - device_s / wall):.1f}% [{card}]", flush=True)
+
+
+def overlap_phase(dtt, kt, eng, card, wave_docs, stream7, profile=False):
+    """Phase 8: (a) the phase-4 wave's texts as one stream of documents
+    ending in ``\\x04\\n``, through ``tokenize_stream_pipelined`` (lanes=8192,
+    pack_len=0, and the defaults) and the serial ``tokenize_stream``;
+    (b) phase 7's stream through ``tokenize_stream_pipelined``.  Each
+    output must equal the native oracle; returns K1's launches."""
+    tok = eng.tok
+    t0 = time.perf_counter()
+    text_a = "".join(t + "\x04\n" for t in wave_docs)
+    want_a = native_oracle(dtt, eng, text_a)
+    print(f"overlap: stream (a) {len(text_a.encode('utf-8'))} bytes, "
+          f"{len(wave_docs)} documents; its native oracle in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    text_b, want_b = stream7
+
+    def pipelined(text, **kw):
+        return lambda w, st: dtt.tokenize_stream_pipelined(
+            tok, text, w, engine=eng, stats=st, **kw)
+
+    runs = [
+        ("(a) pipelined lanes=8192 pack_len=0", text_a, want_a,
+         pipelined(text_a, lanes=8192, pack_len=0)),
+        ("(a) pipelined defaults", text_a, want_a, pipelined(text_a)),
+        ("(a) serial tokenize_stream", text_a, want_a,
+         lambda w, st: dtt.tokenize_stream(tok, text_a, w, engine=eng)),
+        ("(b) pipelined defaults, phase 7 stream", text_b, want_b,
+         pipelined(text_b)),
+    ]
+    launches = 0
+    for name, text, want, run in runs:
+        n_bytes = len(text.encode("utf-8"))
+        st = {}
+        kt.transduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(dtt.NativeWriter(dtt.SIMPLE), st).getvalue()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kt.transduce.launches
+        if n < 1:
+            raise RuntimeError(f"overlap {name}: K1 was not launched")
+        check_same(f"overlap {name}", got, want)
+        launches += n
+        line = f"; {stage_line(st, wall)}; stats {json.dumps(st)}" if st else ""
+        print(f"overlap {name}: {n_bytes / wall / 1e6:.2f} MB/s ({n_bytes} "
+              f"bytes in {wall:.3f} s), K1 launches {n}, byte-equal to the "
+              f"native oracle{line} [{card}]", flush=True)
+    if profile:
+        from datok_tpu_torch.runtime import pipeline as P
+
+        def run():
+            return runs[1][3](dtt.NativeWriter(dtt.SIMPLE), {})
+
+        profile_overlap(run, len(text_a.encode("utf-8")), card)
+        host_profile(run, "one pipelined run of (a), defaults", "tottime", card)
+        t0 = time.perf_counter()
+        docs = P.split_stream(tok, text_a)
+        t1 = time.perf_counter()
+        P.predict_entries(eng.encoder, docs)
+        t2 = time.perf_counter()
+        print(f"profile: (a) alone on the host: split_stream {t1 - t0:.3f} s "
+              f"({len(docs)} documents), predict_entries {t2 - t1:.3f} s "
+              f"[{card}]", flush=True)
+    return launches
+
+
+def cut_mid_word(text):
+    """``text`` without its final ``\\x04\\n``, cut inside its last word."""
+    body = text[:-2]
+    for i in range(len(body) - 1, 0, -1):
+        if body[i].isalpha() and body[i - 1].isalpha():
+            return body[:i]
+    return body + "Wor"
+
+
+def corpus_phase(dtt, kt, eng, card, wave_docs):
+    """Phase 9: the synthetic model saved as a ``.matok``; 64 files cut
+    from phase 8(a)'s documents (4 cut mid-word without EOT, 1 empty)
+    through ``datok_tpu_torch.cli.main(["corpus", ...])``, each output
+    equal to the native oracle; a second run must skip every file and
+    launch nothing; ``python -m datok_tpu_torch.cli tokenize --batch``
+    on one file in a subprocess must print the oracle's bytes.  Returns
+    K1's launches of the first corpus run."""
+    import contextlib
+    import tempfile
+
+    from datok_tpu_torch import cli
+
+    n_files = 64
+    per = len(wave_docs) // n_files
+    texts = ["".join(t + "\x04\n" for t in wave_docs[i * per:(i + 1) * per])
+             for i in range(n_files)]
+    texts[7] = ""
+    for i in (13, 29, 41, 58):
+        texts[i] = cut_mid_word(texts[i])
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    with tempfile.TemporaryDirectory(prefix="datok-smoke-") as d:
+        model = os.path.join(d, "synth.matok")
+        eng.tok.save(model)
+        files = []
+        for i, t in enumerate(texts):
+            files.append(os.path.join(d, f"doc{i:02d}.txt"))
+            with open(files[-1], "w", encoding="utf-8") as f:
+                f.write(t)
+        out = os.path.join(d, "out")
+        argv = ["corpus", "-t", model, "-o", out, *files, "--device",
+                str(eng.device)]
+
+        def corpus():
+            buf = io.StringIO()
+            kt.transduce.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"corpus: exit code {rc}")
+            return json.loads(buf.getvalue().splitlines()[-1]), wall, \
+                kt.transduce.launches
+
+        stats, wall, launches = corpus()
+        if launches < 1:
+            raise RuntimeError("corpus: K1 was not launched")
+        if (stats["done"], stats["skipped"]) != (n_files, 0):
+            raise RuntimeError(f"corpus: {stats}")
+        t0 = time.perf_counter()
+        for f, t in zip(files, texts):
+            with open(os.path.join(out, os.path.basename(f) + ".tok"),
+                      encoding="utf-8") as fh:
+                check_same(f"corpus {os.path.basename(f)}", fh.read(),
+                           native_oracle(dtt, eng, t))
+        print(f"corpus: {json.dumps(stats)}", flush=True)
+        print(f"corpus: {n_files} files, {n_bytes} bytes in {wall:.3f} s, "
+              f"{n_bytes / wall / 1e6:.2f} MB/s; K1 launches {launches}; "
+              f"{stage_line(stats['pipeline'], wall)}; every output "
+              f"byte-equal to the native oracle (checked in "
+              f"{time.perf_counter() - t0:.2f} s) [{card}]", flush=True)
+
+        again, wall2, launches2 = corpus()
+        if (again["done"], again["skipped"]) != (0, n_files) or launches2:
+            raise RuntimeError(f"corpus resume: {again}, K1 launches "
+                               f"{launches2}")
+        print(f"corpus resume: skipped all {n_files} files in {wall2:.3f} s, "
+              f"K1 launches {launches2}", flush=True)
+
+        pick = files[13]
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "datok_tpu_torch.cli", "tokenize", "-t",
+             model, pick, "--batch", "--device", str(eng.device)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"cli tokenize --batch: exit code "
+                               f"{r.returncode}: {r.stderr.decode()[-2000:]}")
+        check_same("cli tokenize --batch", r.stdout.decode("utf-8"),
+                   native_oracle(dtt, eng, texts[13]))
+        print(f"cli: python -m datok_tpu_torch.cli tokenize --batch --device "
+              f"{eng.device} on {os.path.basename(pick)} ({len(texts[13])} "
+              f"characters, ends mid-word): stdout byte-equal to the native "
+              f"oracle, {time.perf_counter() - t0:.2f} s with start-up "
+              f"[{card}]", flush=True)
+    return launches
 
 
 def main():
@@ -597,7 +837,15 @@ def main():
     probes = probe_phase(card, torch.device("cuda"))
 
     # 7. streaming at real size
-    stream_phase(dtt, kt, eng, card, synth_text, opts.profile)
+    stream7 = stream_phase(dtt, kt, eng, card, synth_text, opts.profile)
+
+    # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
+    launches8 = overlap_phase(dtt, kt, eng, card, texts, stream7, opts.profile)
+
+    # 9. the corpus runner and the CLI
+    launches9 = corpus_phase(dtt, kt, eng, card, texts)
+    print(f"K1 launches by path: phase 4 wave {launches}, phase 8 "
+          f"{launches8}, phase 9 corpus {launches9}", flush=True)
 
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
@@ -606,7 +854,7 @@ def main():
         "route": "cuda",
         "source": "datok_tpu_torch/csrc/transduce.cu",
         "replaces": "datok_tpu/runtime/pallas_engine.py:384",
-        "launches": launches,
+        "launches": launches + launches8 + launches9,
         "max_abs_err": max(err3, err4),
         "ms": k_ms,
         "plain_ms": p_ms,

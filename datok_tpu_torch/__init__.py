@@ -13,6 +13,11 @@ imports jax.
     eng = BatchEngine(tok, device="cuda")
     outs = eng.tokenize_batch(["Der alte Mann.", "..."])
     out = tokenize_stream(tok, stream_text, engine=eng).getvalue()
+    out = tokenize_stream_pipelined(tok, stream_text, engine=eng).getvalue()
+    CorpusRunner(tok, "out/", engine=eng).run(["a.txt", "b.txt"])
+
+The same commands as ``datok-tpu``: ``python -m datok_tpu_torch.cli``
+(``tokenize``, ``corpus``, ``convert``; ``--device cuda`` by default).
 """
 
 from datok_tpu.fsa.double_array import DaTokenizer, load_datok_file
@@ -26,11 +31,14 @@ from datok_tpu.runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
                                       TokenWriter)
 from datok_tpu.utils.native import NativeWriter, native_transduce_events
 
+from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
+from .runtime.overlap import tokenize_stream_pipelined, waves_pipelined
 from .runtime.pipeline import tokenize_reader, tokenize_stream
 
 __all__ = [
     "BatchEngine",
+    "CorpusRunner",
     "DaTokenizer",
     "MatrixTokenizer",
     "NativeWriter",
@@ -48,6 +56,8 @@ __all__ = [
     "transduce",
     "tokenize_stream",
     "tokenize_reader",
+    "tokenize_stream_pipelined",
+    "waves_pipelined",
     "EV_TOKEN",
     "EV_SENT",
     "EV_TEXT",

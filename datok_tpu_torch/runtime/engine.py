@@ -73,6 +73,19 @@ class BatchEngine:
     def max_steps_for(self, L: int) -> int:
         return int(self.steps_factor * L) + 64
 
+    def _launch(self, meta, lengths, entries, stops):
+        """The device machine on (B, L) ``meta`` and (B,) lane tensors,
+        all on the engine's device; meta is transposed to (L, B) there."""
+        L = meta.shape[1]
+        if L > MAX_SEGMENT:
+            raise ValueError(
+                f"segment length {L} exceeds packed-event limit "
+                f"{MAX_SEGMENT}; use the segmentation pipeline for longer "
+                "streams"
+            )
+        return transduce(self.tables, meta.t().contiguous(), lengths, entries,
+                         stops, self.max_steps_for(L))
+
     def run_raw_device(self, meta: np.ndarray, lengths: np.ndarray,
                        entries: Optional[np.ndarray] = None,
                        stops: Optional[np.ndarray] = None):
@@ -83,13 +96,7 @@ class BatchEngine:
         ``entries`` optionally sets per-lane packed entry contexts;
         ``stops`` marks lanes that cut at their end instead of running
         the EOF epilogue."""
-        B, L = meta.shape
-        if L > MAX_SEGMENT:
-            raise ValueError(
-                f"segment length {L} exceeds packed-event limit "
-                f"{MAX_SEGMENT}; use the segmentation pipeline for longer "
-                "streams"
-            )
+        B = meta.shape[0]
         if entries is None:
             entries = np.ones(B, dtype=np.int32)
         if stops is None:
@@ -99,12 +106,35 @@ class BatchEngine:
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
 
-        meta_T = put(meta, np.int32).t().contiguous()
-        return transduce(
-            self.tables, meta_T, put(lengths, np.int32),
-            put(entries, np.int32), put(stops, np.bool_),
-            self.max_steps_for(L),
-        )
+        return self._launch(put(meta, np.int32), put(lengths, np.int32),
+                            put(entries, np.int32), put(stops, np.bool_))
+
+    def run_raw_async(self, meta: torch.Tensor, lengths: torch.Tensor,
+                      entries: torch.Tensor, stops: torch.Tensor):
+        """:meth:`run_raw_device` on host tensors without blocking the
+        host: ``meta`` (B, L) int32, ``lengths`` and ``entries`` (B,)
+        int32, ``stops`` (B,) bool.
+
+        On a CUDA device they must lie in pinned memory (a copy from
+        pageable memory holds the calling thread until it is staged);
+        each is copied with ``copy_(..., non_blocking=True)`` on the
+        current stream, which K1 then runs on, and nothing synchronises.
+        The caller keeps the host tensors unchanged until the stream has
+        passed the launch (an event recorded after it).  On the CPU the
+        tensors are used as they are."""
+        host = (("meta", meta), ("lengths", lengths), ("entries", entries),
+                ("stops", stops))
+        dev = self.device
+        if dev.type == "cuda":
+            for name, x in host:
+                if not x.is_pinned():
+                    raise ValueError(f"{name} is not in pinned host memory")
+            meta, lengths, entries, stops = (
+                torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(
+                    x, non_blocking=True)
+                for _, x in host
+            )
+        return self._launch(meta, lengths, entries, stops)
 
     def run_raw(self, meta: np.ndarray, lengths: np.ndarray,
                 entries: Optional[np.ndarray] = None,

@@ -28,17 +28,18 @@ of a step-indexed buffer, and there is no default engine: callers pass
 from __future__ import annotations
 
 import codecs
+import re
 import sys
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from datok_tpu.fsa.io import FIRSTBIT, RESTBIT
-from datok_tpu.runtime.debug import divergence_debug_enabled
 from datok_tpu.runtime.encode import text_to_codepoints
 from datok_tpu.runtime.events import EV_SENT, replay_events
 from datok_tpu.runtime.writer import SIMPLE, TokenWriter
 
+from .debug import divergence_debug_enabled
 from .decode import decode_events_compact
 from .engine import BatchEngine
 from .machine import MAX_SEGMENT
@@ -159,23 +160,25 @@ def eot_split_safe(tok) -> bool:
     return safe
 
 
-def _stale_ok_after(encoder, doc: str, ok: int) -> int:
+_WIDE = re.compile("[^\x00-\xff]")
+
+
+def _stale_ok_after(known: frozenset, doc: str, ok: int) -> int:
     """Stale-``ok`` register value after transducing ``doc``: "was the
-    last codepoint >= 256 in sigma", or the entry value for pure-ASCII
-    documents (the reference reassigns ``ok`` only on the non-ASCII
-    path)."""
-    if doc.isascii():
-        return ok
-    # scan a bounded tail (non-ASCII is dense in real text); fall back
-    # to a vectorized full scan for pathological tails
-    tail = doc[-4096:]
-    for ch in reversed(tail):
-        if ord(ch) >= 256:
-            keys = encoder.keys
-            i = int(np.searchsorted(keys, ord(ch)))
-            return int(i < len(keys) and keys[i] == ord(ch))
-    if len(doc) > len(tail):
-        return _stale_ok_at_cuts(encoder, doc, [len(doc)], ok)[0]
+    last codepoint >= 256 in sigma" (``known``: the encoder's keys), or
+    the entry value for documents without one (the reference reassigns
+    ``ok`` only on that path).
+
+    The JAX module scans the tail in a Python loop over characters
+    (pipeline.py:219-238), which on Latin-1 text without a codepoint
+    >= 256 walks 4096 characters per document.  Here a Latin-1 encode
+    (a copy in C for such text) tells that there is none, a regex scan
+    finds the last one otherwise, and a set lookup replaces a
+    ``searchsorted`` call per document."""
+    try:
+        doc.encode("latin-1")
+    except UnicodeEncodeError:
+        return int(ord(_WIDE.findall(doc)[-1]) in known)
     return ok
 
 
@@ -192,11 +195,12 @@ def predict_entries(encoder, docs: Sequence[str], entry: int = 1,
     n = len(docs)
     ents = np.empty(n, dtype=np.int32)
     cur = int(entry)
+    known = frozenset(encoder.keys.tolist())
     for k, doc in enumerate(docs):
         if breaks is not None and breaks[k]:
             cur = 1
         ents[k] = cur
-        ok = _stale_ok_after(encoder, doc, (cur >> 30) & 1)
+        ok = _stale_ok_after(known, doc, (cur >> 30) & 1)
         cur = 1 | SPLIT_FLAGS | (ok << 30)
     return ents, cur
 
@@ -374,8 +378,8 @@ def _divergence(lane: int, j: int, cut: int) -> None:
         print(
             f"datok-tpu: speculative-cut divergence (lane {lane}, seg {j}, "
             f"cut {cut}); falling back to exact replay — use "
-            "runtime.debug.dump_divergence on the document for a step "
-            "trace",
+            "datok_tpu_torch.runtime.debug.dump_divergence on the document "
+            "for a step trace",
             file=sys.stderr,
         )
 

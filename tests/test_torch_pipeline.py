@@ -228,3 +228,24 @@ def test_stream_needs_engine_or_device(models):
         dtt.tokenize_stream(models["matok"], "a.")
     with pytest.raises(ValueError):
         dtt.tokenize_reader(models["matok"], io.StringIO("a."))
+
+
+def test_stale_ok_after_equals_jax(models):
+    """The port's regex scan for the last codepoint >= 256 and its set
+    lookup give the JAX module's value (a Python loop over the tail, a vectorized scan
+    beyond it) on ASCII, Latin-1 and wide text, inside and beyond the
+    4096-character tail, for both entry values."""
+    enc = dtt.BatchEngine(models["matok"], device="cpu").encoder
+    known = chr(int(enc.keys[0])) if len(enc.keys) else "€"
+    rng = np.random.default_rng(SEED)
+    pool = ["a", " ", ".", "ä", "ß", "\x04", known, "中", "\ud800", "€", "œ"]
+    docs = ["", "abc", "Grüße", "ab中", "ab€", "x€ü", known + "ü" * 5000,
+            "中" + "a" * 5000, known + "ü" * 4095, "ü" * 6000]
+    for n in (1, 7, 300, 5000):
+        for _ in range(6):
+            docs.append("".join(rng.choice(pool, n)))
+    known = frozenset(enc.keys.tolist())
+    for doc in docs:
+        for ok in (0, 1):
+            assert P._stale_ok_after(known, doc, ok) == JP._stale_ok_after(
+                enc, doc, ok), (doc[:20], len(doc), ok)
