@@ -6,16 +6,22 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: builds K1 (csrc/transduce.cu), KF and KP from the
-   repository's sources, all at once, one ``nvcc`` each;
+   repository's sources, all at once, one ``nvcc`` each, and counts
+   the fewest instructions one pass of K1's step loop issues in its
+   SASS (``cuobjdump``);
 3. kernel vs plain: K1 and the plain PyTorch machine on the same CUDA
-   tensors (full-size synthetic model, B=4096 x L=256) must agree
-   exactly; both are timed in turns (plain, kernel, kernel, plain);
+   tensors (full-size synthetic model, B=4096 x L=256, without a hot
+   set and with the ``"auto"`` one) must agree exactly, cold-step
+   counts included; both are timed in turns (plain, kernel, kernel,
+   plain);
 4. main path: one wave of B=32768 x L=1024 through
    ``BatchEngine(tok, device="cuda").events_batch`` and the native
    writer; K1 must have launched, every lane must equal the native
    oracle, and 64 sampled lanes must be byte-equal to ``tok.tokenize``;
    then K1 and the plain machine run the wave's own tensors, must agree
-   exactly and are timed in turns;
+   exactly and are timed in turns, and K1 with no hot set (the
+   default, ``hot_size=0``) and with the ``"auto"`` one in turns, on
+   the wave and on one of its shape whose lanes all read the same text;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
    through the same path;
 6. the probe kernels: KF (``csrc/hot_fetch.cu``, select on and off) and
@@ -38,7 +44,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    through ``tokenize_stream_pipelined`` (its long documents take the
    long route inside the prep thread); each output byte-equal to the
    native oracle, K1 launched, the stage seconds printed beside the
-   wall time;
+   wall time; then, untimed, (a) with the defaults on an engine with
+   the ``"auto"`` hot set, whose first wave, as the pipeline launched
+   it, runs through K1 with ``hot_size=0`` and ``"auto"`` in turns;
 9. the corpus runner and the CLI: the model saved as a ``.matok``, 64
    files cut from phase 8's documents (4 ending mid-word without EOT,
    1 empty) through ``datok_tpu_torch.cli.main(["corpus", ...])``, each
@@ -57,11 +65,21 @@ share; and after phase 7 a ``cProfile`` table of one more
 table of all its threads, and the host time of the EOT split and the
 entry prediction alone.
 
+Phases 4, 7 and 8 print the share of K1's steps whose state was cold
+with the ``"auto"`` hot set (``BatchEngine.cold_share``; phase 7 from
+one more, untimed ``tokenize_stream`` on that engine).  The script
+fails if the port loaded jax or any module of the JAX package.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its paths (K1: phase 4's wave,
-phase 8's runs and phase 9's first corpus run; KF and KP: their probe
-scripts), its largest error against the plain version and both times
-at its path's shape.
+phase 8's timed runs and phase 9's first corpus run; KF and KP: their
+probe scripts), its largest error against the plain version, both
+times at its path's shape, its bound (the larger of its bytes over
+3.35 TB/s and, for K1, its instructions over the card's issue rate,
+from this run's inputs) and the time of one PyTorch call computing the
+same function, where there is one; K1's entry adds its time with the
+``"auto"`` hot set and that set's size, its time with one text on every
+lane and the cold shares.
 """
 
 import argparse
@@ -92,7 +110,11 @@ DE_MODEL = os.environ.get("DATOK_DE_MODEL", "")
 SEED = 0
 CHECK_SHAPE = (4096, 256)  # (B, L) of the kernel-vs-plain phase
 WAVE_SHAPE = (32768, 1024)  # (B, L) of the main-path wave, bench.py:400-401
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (the data sheet)
+# thread-instructions an SM issues a clock: 4 schedulers, one warp each
+ISSUE_PER_SM_CLOCK = 4 * 32
 PROBE_SHAPE = (16384, 384, 64)  # (B, H, K) defaults of the TPU probes
+N_SYMBOLS = 256  # rows of KF's planes
 # phase 7's stream: documents of 1-16 KB and long ones of 0.5-1.5 MB
 STREAM_DOCS = (2000, 1 << 10, 16 << 10)
 STREAM_LONG = (16, 1 << 19, 3 << 19)
@@ -156,6 +178,63 @@ def wave_texts(tok, B, L, synth_text):
     return texts
 
 
+def bound_ms(n_bytes):
+    """The least time to move ``n_bytes`` at the card's memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def k1_bound(meta_args, res, n_states, step_instr, n_sm, clock_hz):
+    """K1's bound on one launch: the larger of its bytes over the memory
+    rate and its instructions over the issue rate.  Bytes: each input
+    read once (the meta words of each lane's length, the lane vectors,
+    one 4-byte cell of each of the ``n_states`` states whose row the
+    walk reads) and each output written once (the events each lane
+    wrote, the lane vectors and state rows, the two counts).
+    Instructions: the lanes' steps times ``step_instr``, the fewest one
+    pass of K1's step loop issues (its SASS), at 128 a clock on each of
+    ``n_sm`` SMs at ``clock_hz``.  Returns (ms, "bytes" or "operations",
+    bytes, bytes ms, steps, instructions ms)."""
+    _meta, lengths, _entries, _stops = meta_args
+    B = int(lengths.numel())
+    n = (4 * int(lengths.sum()) + 9 * B + 4 * n_states
+         + 4 * int(res[1].sum()) + (4 + 1 + 24 + 4) * B + 16)
+    steps = int(res[4].long().sum())
+    ops_ms = steps * step_instr / (n_sm * ISSUE_PER_SM_CLOCK * clock_hz) * 1e3
+    b_ms = bound_ms(n)
+    return (max(b_ms, ops_ms), "bytes" if b_ms >= ops_ms else "operations",
+            n, b_ms, steps, ops_ms)
+
+
+def k1_turns(args, tb_hot, tb_none, n=10):
+    """K1 with no hot set and with the engine's, in turns (none, auto,
+    auto, none), each the mean of ``n`` launches after a warm-up, on
+    the same inputs; both must give the same results."""
+    from datok_tpu_torch.kernels import transduce as kt
+
+    _tb, *rest = args
+    a = kt.transduce(tb_none, *rest)
+    b = kt.transduce(tb_hot, *rest)
+    err = max_abs_err(a[:5], b[:5])
+    if err:
+        raise RuntimeError(f"K1 differs between hot sets (max abs err {err})")
+    z1, _ = cuda_ms(lambda: kt.transduce(tb_none, *rest), n=n, warmup=2)
+    h1, _ = cuda_ms(lambda: kt.transduce(tb_hot, *rest), n=n, warmup=2)
+    h2, _ = cuda_ms(lambda: kt.transduce(tb_hot, *rest), n=n, warmup=2)
+    z2, _ = cuda_ms(lambda: kt.transduce(tb_none, *rest), n=n, warmup=2)
+    share = b[5][0].item() / max(b[5][1].item(), 1)
+    return (z1, h1, h2, z2), share
+
+
+def k1_kernel(B, n_sm):
+    """The instantiation of K1 that a launch of B lanes runs: its
+    blocks take ceil(B / SMs) lanes rounded up to a warp, at most 1024,
+    and up to 256 run the 256-thread kernel (transduce.cu)."""
+    per_sm = -(-B // n_sm)
+    threads = min(-(-per_sm // 32) * 32, 1024)
+    return "transduce_kernelILi256E" if threads <= 256 else \
+        "transduce_kernelILi1024E"
+
+
 def to_cuda(meta, lengths, entries=None, stops=None):
     B = meta.shape[0]
     dev = torch.device("cuda")
@@ -163,21 +242,28 @@ def to_cuda(meta, lengths, entries=None, stops=None):
         entries = np.ones(B, np.int32)
     if stops is None:
         stops = np.zeros(B, bool)
-    return (torch.from_numpy(meta).to(dev).t().contiguous(),
+    return (torch.from_numpy(meta).to(dev),
             torch.from_numpy(lengths).to(dev),
             torch.from_numpy(np.asarray(entries, np.int32)).to(dev),
             torch.from_numpy(np.asarray(stops, bool)).to(dev))
 
 
-def run_wave(dtt, kt, run_machine, eng, texts, card, label):
-    """One wave through the main path (events_batch, then the native
-    writer), checked lane by lane, then K1 against the plain machine on
-    the wave's tensors; returns (K1's launches on the main path, max abs
-    err, K1 ms, plain ms)."""
+def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
+    """One wave through the main path (events_batch on ``eng``, which
+    has no hot set, then the native writer), checked lane by lane, then
+    K1 against the plain machine on the wave's tensors and K1 without
+    and with ``eng_hot``'s hot set in turns; ``chip`` holds the SMs,
+    the top clock and the step loop's instructions for the bound.
+    Returns a dict of K1's launches on the main path, max abs err, its
+    times, the plain time, the bound and the hot set's cold share."""
+    from datok_tpu_torch.kernels import transduce as kt
+    from datok_tpu_torch.utils.native import native_state_census
+
     tok = eng.tok
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
-    kt.transduce.launches = 0
     torch.cuda.synchronize()
+    eng.reset_cold()
+    kt.transduce.launches = 0
     t0 = time.perf_counter()
     evs = eng.events_batch(texts, as_arrays=True)
     counts = np.array([len(e) for e in evs], dtype=np.int32)
@@ -196,7 +282,8 @@ def run_wave(dtt, kt, run_machine, eng, texts, card, label):
         raise RuntimeError("the main path formatted no output")
     print(f"{label}: main path {n_bytes / wall / 1e6:.2f} MB/s "
           f"({n_bytes} bytes in {wall:.3f} s, encode+K1+decode+format), "
-          f"K1 launches {launches} [{card}]", flush=True)
+          f"K1 launches {launches}; hot set {eng.hot_size} states "
+          f"[{card}]", flush=True)
 
     # K1 and the plain machine on the tensors the main path gives K1
     meta, lengths, _ = eng.encoder.encode_batch(texts)
@@ -223,6 +310,9 @@ def run_wave(dtt, kt, run_machine, eng, texts, card, label):
           f"{int(steps.sum()) / max(int(lengths.sum()), 1):.3f} [{card}]",
           flush=True)
 
+    # every lane against the native oracle; the states whose rows the
+    # walk reads, from the native census of each lane
+    seen = np.zeros(tok.state_count + 1, dtype=bool)
     for i in range(len(texts)):
         ref = dtt.native_transduce_events(tok, meta[i, : lengths[i]], as_array=True)
         if ref is None:
@@ -230,6 +320,7 @@ def run_wave(dtt, kt, run_machine, eng, texts, card, label):
         if not np.array_equal(ref, evs[i]):
             raise RuntimeError(f"{label}: lane {i} differs from the native "
                                f"oracle: {texts[i][:80]!r}")
+        seen |= native_state_census(tok, meta[i, : lengths[i]])[0] > 0
     rng = np.random.default_rng(SEED + 2)
     for i in rng.choice(len(texts), 64, replace=False):
         got = dtt.format_events(evs[i], texts[i], dtt.SIMPLE)
@@ -238,16 +329,46 @@ def run_wave(dtt, kt, run_machine, eng, texts, card, label):
                                f"tok.tokenize: {texts[i][:80]!r}")
     print(f"{label}: all {len(texts)} lanes equal the native oracle, "
           "64 sampled lanes byte-equal to tok.tokenize", flush=True)
-    return launches, err, ms, p_ms
+    (z1, h1, h2, z2), share = k1_turns(args, eng_hot.tables, eng.tables)
+    kern = k1_kernel(meta.shape[0], chip["n_sm"])
+    step_instr = chip["step_instr"][kern]
+    bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
+        args[1:5], res, int(seen.sum()), step_instr, chip["n_sm"],
+        chip["clock_hz"])
+    print(f"{label}: K1 in turns on the wave, hot_size=0 / auto "
+          f"({eng_hot.hot_size}) / auto / 0: {z1:.4f} / {h1:.4f} / "
+          f"{h2:.4f} / {z2:.4f} ms (means of 10); cold share of the auto "
+          f"launch {share:.6f} [{card}]", flush=True)
+    print(f"{label}: K1 bound {bound:.4f} ms, by {by}: bytes {n_b} "
+          f"({int(seen.sum())} states read) at 3.35 TB/s = {b_ms:.4f} ms; "
+          f"{n_steps} steps x {step_instr} instructions ({kern}) at "
+          f"{ISSUE_PER_SM_CLOCK} a clock on {chip['n_sm']} SMs at "
+          f"{chip['clock_hz'] / 1e6:.0f} MHz = {ops_ms:.4f} ms [{card}]",
+          flush=True)
+    # the same shape with one text on every lane: no lane of a warp
+    # branches apart from another, which shows what divergence costs
+    meta_u, lengths_u, _ = eng.encoder.encode_batch(
+        [bench_lane(0, meta.shape[1])] * len(texts))
+    args_u = (eng.tables, *to_cuda(meta_u, lengths_u),
+              eng.max_steps_for(meta_u.shape[1]))
+    (u1, uh1, uh2, u2), _ = k1_turns(args_u, eng_hot.tables, eng.tables)
+    print(f"{label}: K1 in turns with one text on every lane, hot_size=0 /"
+          f" auto / auto / 0: {u1:.4f} / {uh1:.4f} / {uh2:.4f} / {u2:.4f} "
+          f"ms (means of 10) [{card}]", flush=True)
+    return {"launches": launches, "err": err, "ms": ms,
+            "ms_auto": (h1 + h2) / 2, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": by, "cold_share": share,
+            "ms_same_text": (u1 + u2) / 2, "ms_same_text_auto": (uh1 + uh2) / 2}
 
 
-def profile_wave(dtt, kt, eng, texts, card, reps=3):
+def profile_wave(dtt, eng, texts, card, reps=3):
     """Where the wave's time goes: the main path's stages, each timed
     on the host clock between synchronizations, ``events_batch`` alone,
     and one ``events_batch`` under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from datok_tpu_torch.kernels import transduce as kt
     from datok_tpu_torch.runtime.decode import decode_events_compact
 
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
@@ -272,8 +393,8 @@ def profile_wave(dtt, kt, eng, texts, card, reps=3):
         meta, lengths, _ = eng.encoder.encode_batch(texts)
         lap("encode")
         args = (eng.tables, *to_cuda(meta, lengths), eng.max_steps_for(meta.shape[1]))
-        lap("h2d+transpose")
-        ev, counts, bad, _state, _steps = kt.transduce(*args)
+        lap("h2d")
+        ev, counts, bad, _state, _steps, _cold = kt.transduce(*args)
         lap("K1")
         E = max(1, int(counts.max()))
         ev_h, counts_h, bad_h = ev[:, :E].cpu().numpy(), counts.cpu().numpy(), bad.cpu().numpy()
@@ -362,7 +483,11 @@ def probe_phase(card, dev):
     """Phase 6: KF (select on and off) and KP against their plain
     versions on the same CUDA tensors, timed in turns; then the three
     probe scripts once each, with the launch counts read around each.
-    Returns the kernels' entries of the final ``kernels`` line."""
+    Returns the kernels' entries of the final ``kernels`` line, each
+    with its bound from the bytes it must move (its operations, a few
+    integer operations a lane-step, bound it far lower) and, for KF
+    with the select off, the time of one ``torch.take`` that gives the
+    same values."""
     from datok_tpu_torch.bench_micro import (micro_ablate, micro_fused,
                                              micro_pallas)
     from datok_tpu_torch.kernels import hot_fetch as hf
@@ -370,16 +495,33 @@ def probe_phase(card, dev):
 
     B, H, K = PROBE_SHAPE
     fetch_args, fused_args = probe_inputs(dev)
-    cases = [  # (name, kernel, plain, lane-steps per call)
+    a, _h, planes = fetch_args
+    ring, planes_i8, _h0 = fused_args
+    # bytes each function must move: its inputs read once, its outputs
+    # written once; KF without the select reads column 0 of the planes
+    fetch_bytes = 4 * B + 4 * B + planes.numel() + 4 * B
+    fetch0_bytes = 4 * B + N_SYMBOLS + 4 * B
+    fused_bytes = (4 * B * min(K, ring.shape[0]) + planes_i8.numel() + 4 * B
+                   + 4 * K * B + 4 * B)
+    # KF without the select is planes[a, 0], 0 where a is outside 1..255:
+    # one torch.take of column 0 (its row 0 cleared) at the index with
+    # the outside lanes sent to row 0 gives the same values
+    col0 = planes[:, 0].to(torch.int32)
+    col0[0] = 0
+    idx = torch.where((a > 0) & (a < N_SYMBOLS), a, 0).long()
+    cases = [  # (name, kernel, plain, lane-steps per call, bytes, library)
         ("hot_fetch[select]", lambda: hf.hot_fetch(*fetch_args, 3, True),
-         lambda: hf.hot_fetch_plain(*fetch_args, 3, True), B),
+         lambda: hf.hot_fetch_plain(*fetch_args, 3, True), B, fetch_bytes,
+         None),
         ("hot_fetch[no_select]", lambda: hf.hot_fetch(*fetch_args, 3, False),
-         lambda: hf.hot_fetch_plain(*fetch_args, 3, False), B),
+         lambda: hf.hot_fetch_plain(*fetch_args, 3, False), B, fetch0_bytes,
+         lambda: torch.take(col0, idx)),
         ("micro_fused", lambda: mf.micro_fused(*fused_args, K),
-         lambda: mf.micro_fused_plain(*fused_args, K), B * K),
+         lambda: mf.micro_fused_plain(*fused_args, K), B * K, fused_bytes,
+         None),
     ]
     res = {}
-    for name, kern, plain, lane_steps in cases:
+    for name, kern, plain, lane_steps, n_bytes, library in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -394,7 +536,16 @@ def probe_phase(card, dev):
         k2, _ = cuda_ms(kern, n=100, warmup=2)
         p2, _ = cuda_ms(plain, n=10, warmup=2)
         ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        res[name] = (err, ms, p_ms)
+        lib_ms = None
+        if library is not None:
+            if exact_err((library(),), got) != 0:
+                raise RuntimeError(f"{name}: the library call differs")
+            lib_ms, _ = cuda_ms(library, n=100, warmup=2)
+        res[name] = (err, ms, p_ms, bound_ms(n_bytes), lib_ms)
+        print(f"probe {name}: bound {bound_ms(n_bytes):.6f} ms ({n_bytes} "
+              f"bytes at 3.35 TB/s); library call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.take, mean of 100)'}"
+              f" [{card}]", flush=True)
         k_dev, p_dev = device_us(kern), device_us(plain)
         print(f"probe {name}: B={B} H={H}{f' K={K}' if name == 'micro_fused' else ''}"
               f", equal to its plain version (max abs err {err}); per call "
@@ -430,14 +581,16 @@ def probe_phase(card, dev):
     return [{"name": name, "route": "cuda", "source": src + source,
              "replaces": replaces, "launches": n,
              "max_abs_err": res[name][0], "ms": res[name][1],
-             "plain_ms": res[name][2]} for name, source, replaces, n in rows]
+             "plain_ms": res[name][2], "bound_ms": res[name][3],
+             "bound_by": "bytes", "library_ms": res[name][4]}
+            for name, source, replaces, n in rows]
 
 
 def native_oracle(dtt, eng, text):
     """The native oracle over ``text`` as one lane, formatted by the
     native writer: the ground truth of every stream and file."""
-    from datok_tpu.runtime.encode import text_to_codepoints
-    from datok_tpu.utils.native import native_encode
+    from datok_tpu_torch.runtime.encode import text_to_codepoints
+    from datok_tpu_torch.utils.native import native_encode
 
     metas = native_encode(eng.encoder, text.encode("utf-8"))[1]
     ref = dtt.native_transduce_events(eng.tok, metas, as_array=True)
@@ -496,11 +649,13 @@ def stream_text(tok, synth_text):
     return "".join(docs)
 
 
-def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
+def stream_phase(dtt, kt, eng, eng_hot, card, synth_text, profile=False):
     """Phase 7: the stream through three surfaces, each byte-equal to
-    the native oracle over the whole stream as one lane; ``profile``
-    adds a host profile (cProfile) of one more ``tokenize_stream``.
-    Returns the stream and its oracle output."""
+    the native oracle over the whole stream as one lane, then, untimed,
+    ``tokenize_stream`` on ``eng_hot`` for its hot set's cold share;
+    ``profile`` adds a host profile (cProfile) of one more
+    ``tokenize_stream``.  Returns the stream, its oracle output and
+    that cold share."""
     from datok_tpu_torch.runtime.machine import MAX_SEGMENT
 
     tok = eng.tok
@@ -538,10 +693,20 @@ def stream_phase(dtt, kt, eng, card, synth_text, profile=False):
         print(f"stream {name}: {len(data) / wall / 1e6:.2f} MB/s ({len(data)} "
               f"bytes in {wall:.3f} s), K1 launches {launches}, byte-equal to "
               f"the native oracle [{card}]", flush=True)
+    torch.cuda.synchronize()
+    eng_hot.reset_cold()
+    check_same("tokenize_stream auto, hot set", dtt.tokenize_stream(
+        tok, text, dtt.NativeWriter(dtt.SIMPLE), engine=eng_hot,
+        long_strategy="auto").getvalue(), want)
+    torch.cuda.synchronize()
+    cold = eng_hot.cold_share
+    print(f"stream: cold share of K1's steps in one tokenize_stream (auto) "
+          f"with the auto hot set ({eng_hot.hot_size} states) {cold:.6f} "
+          f"[{card}]", flush=True)
     if profile:
         host_profile(lambda: surfaces[0][1](dtt.NativeWriter(dtt.SIMPLE)),
                      "one tokenize_stream (auto)", "cumulative", card)
-    return text, want
+    return text, want, cold
 
 
 STAGES = ("encode", "dispatch", "fetch", "decode", "format")
@@ -578,12 +743,18 @@ def profile_overlap(run, n_bytes, card):
           f"idle {100 * (1 - device_s / wall):.1f}% [{card}]", flush=True)
 
 
-def overlap_phase(dtt, kt, eng, card, wave_docs, stream7, profile=False):
+def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
+                  profile=False):
     """Phase 8: (a) the phase-4 wave's texts as one stream of documents
     ending in ``\\x04\\n``, through ``tokenize_stream_pipelined`` (lanes=8192,
     pack_len=0, and the defaults) and the serial ``tokenize_stream``;
     (b) phase 7's stream through ``tokenize_stream_pipelined``.  Each
-    output must equal the native oracle; returns K1's launches."""
+    output must equal the native oracle.  Then, untimed, (a) with the
+    defaults on ``eng_hot``, whose first wave, as the pipeline launched
+    it, runs through K1 with no hot set and with ``eng_hot``'s in turns.
+    Returns K1's launches in the timed runs, the hot set's cold share
+    of the untimed run and the wave's K1 times."""
+    from datok_tpu_torch.runtime import engine as engine_mod
     tok = eng.tok
     t0 = time.perf_counter()
     text_a = "".join(t + "\x04\n" for t in wave_docs)
@@ -591,7 +762,15 @@ def overlap_phase(dtt, kt, eng, card, wave_docs, stream7, profile=False):
     print(f"overlap: stream (a) {len(text_a.encode('utf-8'))} bytes, "
           f"{len(wave_docs)} documents; its native oracle in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    text_b, want_b = stream7
+    text_b, want_b, _ = stream7
+    waves = []
+
+    def capture(tb, meta, lengths, entries, stops, max_steps, **kw):
+        # a copy of the first wave's inputs, on the launching stream
+        if not waves:
+            waves.append((tb, meta.clone(), lengths.clone(), entries.clone(),
+                          stops.clone(), max_steps))
+        return kt.transduce(tb, meta, lengths, entries, stops, max_steps, **kw)
 
     def pipelined(text, **kw):
         return lambda w, st: dtt.tokenize_stream_pipelined(
@@ -625,6 +804,30 @@ def overlap_phase(dtt, kt, eng, card, wave_docs, stream7, profile=False):
         print(f"overlap {name}: {n_bytes / wall / 1e6:.2f} MB/s ({n_bytes} "
               f"bytes in {wall:.3f} s), K1 launches {n}, byte-equal to the "
               f"native oracle{line} [{card}]", flush=True)
+    # untimed: (a) with the defaults on the hot set's engine, its first
+    # wave kept
+    torch.cuda.synchronize()
+    eng_hot.reset_cold()
+    engine_mod.transduce = capture
+    try:
+        got = dtt.tokenize_stream_pipelined(
+            tok, text_a, dtt.NativeWriter(dtt.SIMPLE), engine=eng_hot).getvalue()
+    finally:
+        engine_mod.transduce = kt.transduce
+    check_same("overlap (a) pipelined defaults, hot set", got, want_a)
+    torch.cuda.synchronize()
+    cold = eng_hot.cold_share
+    print(f"overlap: cold share of K1's steps in (a) with the defaults and "
+          f"the auto hot set ({eng_hot.hot_size} states) {cold:.6f} "
+          f"[{card}]", flush=True)
+    (z1, h1, h2, z2), share = k1_turns(waves[0], eng_hot.tables, eng.tables)
+    B, L = waves[0][1].shape
+    print(f"overlap: K1 in turns on (a)'s first wave (defaults), B={B} x "
+          f"L={L}, hot_size=0 / auto / auto / 0: {z1:.4f} / {h1:.4f} / "
+          f"{h2:.4f} / {z2:.4f} ms (means of 10); cold share of the launch "
+          f"{share:.6f} [{card}]", flush=True)
+    wave8 = {"B": int(B), "L": int(L), "ms": (z1 + z2) / 2,
+             "ms_auto": (h1 + h2) / 2, "cold_share": share}
     if profile:
         from datok_tpu_torch.runtime import pipeline as P
 
@@ -641,7 +844,7 @@ def overlap_phase(dtt, kt, eng, card, wave_docs, stream7, profile=False):
         print(f"profile: (a) alone on the host: split_stream {t1 - t0:.3f} s "
               f"({len(docs)} documents), predict_entries {t2 - t1:.3f} s "
               f"[{card}]", flush=True)
-    return launches
+    return launches, cold, wave8
 
 
 def cut_mid_word(text):
@@ -765,7 +968,7 @@ def main():
           flush=True)
 
     import datok_tpu_torch as dtt
-    from datok_tpu_torch.kernels import build
+    from datok_tpu_torch.kernels import build, sass
     from datok_tpu_torch.kernels import transduce as kt
     from datok_tpu_torch.runtime.machine import run_machine
     from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
@@ -783,14 +986,31 @@ def main():
             for line in open(spec.log):
                 if "registers" in line or "spill" in line:
                     print(f"build: {spec.name}:", line.strip(), flush=True)
+    # the fewest instructions one pass of K1's step loop issues, for
+    # each of its two instantiations, and what the bound needs of the card
+    listing = sass.cuobjdump(build.TRANSDUCE.path)
+    chip = {"n_sm": torch.cuda.get_device_properties(0).multi_processor_count,
+            "clock_hz": 1e6 * float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], check=True,
+                capture_output=True, text=True).stdout.split()[0]),
+            "step_instr": {}}
+    for kern in ("transduce_kernelILi256E", "transduce_kernelILi1024E"):
+        fewest, static = sass.loop_min_instructions(listing, kern)
+        chip["step_instr"][kern] = fewest
+        print(f"build: transduce: {kern}: step loop {static} instructions, "
+              f"{fewest} on its shortest pass (SASS)", flush=True)
 
     # 3. kernel vs plain on the same CUDA tensors
     t0 = time.perf_counter()
     tok = synth_tokenizer(seed=SEED)
     eng = dtt.BatchEngine(tok, device="cuda")
+    eng_hot = dtt.BatchEngine(tok, device="cuda", hot_size="auto")
     print(f"model: synthetic, {tok.state_count} states x "
           f"{eng.tables.max_sym} symbols, {4 * eng.tables.n_cells / 1e6:.2f} MB, "
-          f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"built in {time.perf_counter() - t0:.2f} s; the auto hot set "
+          f"{eng_hot.hot_size} states ({4 * eng_hot.tables.hot.rows.numel()} "
+          f"bytes of shared memory a block)", flush=True)
     B3, L3 = CHECK_SHAPE
     rng = np.random.default_rng(SEED)
     lens3 = rng.integers(L3 // 4, L3 + 1, B3)
@@ -803,33 +1023,40 @@ def main():
                         max_steps3)
     # non-root entries: the exit contexts of that run, shuffled
     entries3 = first[3][:, 0].cpu().numpy()[rng.permutation(B3)]
-    args3 = (eng.tables, *to_cuda(meta3, lengths3, entries3, stops3), max_steps3)
-    err3 = max_abs_err(kt.transduce(*args3), run_machine(*args3))
-    if err3 != 0:
-        raise RuntimeError(f"K1 differs from the plain machine (max abs err {err3})")
+    rest3 = (*to_cuda(meta3, lengths3, entries3, stops3), max_steps3)
+    err3 = 0
+    for e in (eng_hot, eng):
+        err3 = max(err3, max_abs_err(kt.transduce(e.tables, *rest3),
+                                     run_machine(e.tables, *rest3)))
+        if err3 != 0:
+            raise RuntimeError(f"K1 with hot set {e.hot_size} differs from "
+                               f"the plain machine (max abs err {err3})")
+    args3 = (eng.tables, *rest3)
     # in turns: plain, kernel, kernel, plain (K1 turns: mean of 10)
     p1, _ = cuda_ms(lambda: run_machine(*args3))
     k1, _ = cuda_ms(lambda: kt.transduce(*args3), n=10, warmup=2)
     k2, _ = cuda_ms(lambda: kt.transduce(*args3), n=10, warmup=2)
     p2, _ = cuda_ms(lambda: run_machine(*args3))
-    print(f"kernel vs plain: B={B3} x L={L3}, events/counts/bad/state/steps "
-          f"equal (max abs err {err3}); K1 {k1:.3f} / {k2:.3f} ms, plain "
+    print(f"kernel vs plain: B={B3} x L={L3}, hot sets {eng_hot.hot_size} "
+          f"and 0, events/counts/bad/state/steps/cold equal (max abs err "
+          f"{err3}); without a hot set K1 {k1:.3f} / {k2:.3f} ms, plain "
           f"{p1:.3f} / {p2:.3f} ms [{card}]", flush=True)
 
     # 4. main path at real size
     texts = wave_texts(tok, *WAVE_SHAPE, synth_text)
-    launches, err4, k_ms, p_ms = run_wave(dtt, kt, run_machine, eng, texts,
-                                          card, "synthetic DE-size model")
+    w4 = run_wave(dtt, run_machine, eng, eng_hot, texts, card,
+                  "synthetic DE-size model", chip)
     if opts.profile:
-        profile_wave(dtt, kt, eng, texts, card)
+        profile_wave(dtt, eng, texts, card)
 
     # 5. the DE model, if present
     if DE_MODEL and os.path.exists(DE_MODEL):
         tok_de = dtt.load_tokenizer_file(DE_MODEL)
         eng_de = dtt.BatchEngine(tok_de, device="cuda")
+        eng_de_hot = dtt.BatchEngine(tok_de, device="cuda", hot_size="auto")
         B, L = WAVE_SHAPE
-        run_wave(dtt, kt, run_machine, eng_de,
-                 [bench_lane(i, L) for i in range(B)], card, "DE model")
+        run_wave(dtt, run_machine, eng_de, eng_de_hot,
+                 [bench_lane(i, L) for i in range(B)], card, "DE model", chip)
     else:
         print("DE model: skipped, DATOK_DE_MODEL names no file", flush=True)
 
@@ -837,27 +1064,47 @@ def main():
     probes = probe_phase(card, torch.device("cuda"))
 
     # 7. streaming at real size
-    stream7 = stream_phase(dtt, kt, eng, card, synth_text, opts.profile)
+    stream7 = stream_phase(dtt, kt, eng, eng_hot, card, synth_text,
+                           opts.profile)
 
     # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
-    launches8 = overlap_phase(dtt, kt, eng, card, texts, stream7, opts.profile)
+    launches8, cold8, wave8 = overlap_phase(dtt, kt, eng, eng_hot, card,
+                                            texts, stream7, opts.profile)
 
     # 9. the corpus runner and the CLI
     launches9 = corpus_phase(dtt, kt, eng, card, texts)
+    launches = w4["launches"]
+    cold = {"4": w4["cold_share"], "7": stream7[2], "8": cold8}
     print(f"K1 launches by path: phase 4 wave {launches}, phase 8 "
-          f"{launches8}, phase 9 corpus {launches9}", flush=True)
+          f"{launches8}, phase 9 corpus {launches9}; with the auto hot set "
+          f"({eng_hot.hot_size} states) the cold share by phase "
+          f"{json.dumps(cold)}", flush=True)
 
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "datok_tpu" or m.startswith("datok_tpu."))
+    if jax_pkg:
+        raise RuntimeError(f"the port imported the JAX package: {jax_pkg}")
     print(json.dumps({"kernels": [{
         "name": "transduce",
         "route": "cuda",
         "source": "datok_tpu_torch/csrc/transduce.cu",
         "replaces": "datok_tpu/runtime/pallas_engine.py:384",
         "launches": launches + launches8 + launches9,
-        "max_abs_err": max(err3, err4),
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "max_abs_err": max(err3, w4["err"]),
+        "ms": w4["ms"],
+        "plain_ms": w4["plain_ms"],
+        "bound_ms": w4["bound_ms"],
+        "bound_by": w4["bound_by"],
+        "library_ms": None,
+        "hot_size": eng.hot_size,
+        "ms_auto": w4["ms_auto"],
+        "auto_hot_size": eng_hot.hot_size,
+        "cold_share": cold,
+        "ms_same_text": w4["ms_same_text"],
+        "ms_same_text_auto": w4["ms_same_text_auto"],
+        "phase8_wave": wave8,
     }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

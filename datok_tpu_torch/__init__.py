@@ -20,21 +20,20 @@ The same commands as ``datok-tpu``: ``python -m datok_tpu_torch.cli``
 (``tokenize``, ``corpus``, ``convert``; ``--device cuda`` by default).
 """
 
-from datok_tpu.fsa.double_array import DaTokenizer, load_datok_file
-from datok_tpu.fsa.io import load_tokenizer_file
-from datok_tpu.fsa.matrix import MatrixTokenizer, load_matrix_file
-from datok_tpu.runtime.events import (EV_SENT, EV_TEXT, EV_TOKEN,
-                                      format_events, replay_events)
-from datok_tpu.runtime.oracle import transduce
-from datok_tpu.runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
-                                      SENTENCES, SIMPLE, TOKEN_POS, TOKENS,
-                                      TokenWriter)
-from datok_tpu.utils.native import NativeWriter, native_transduce_events
-
+from .fsa.double_array import DaTokenizer, load_datok_file
+from .fsa.io import load_tokenizer_file
+from .fsa.matrix import MatrixTokenizer, load_matrix_file
 from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
+from .runtime.events import (EV_SENT, EV_TEXT, EV_TOKEN,
+                             format_events, replay_events)
+from .runtime.oracle import transduce
 from .runtime.overlap import tokenize_stream_pipelined, waves_pipelined
 from .runtime.pipeline import tokenize_reader, tokenize_stream
+from .runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
+                             SENTENCES, SIMPLE, TOKEN_POS, TOKENS,
+                             TokenWriter)
+from .utils.native import NativeWriter, native_transduce_events
 
 __all__ = [
     "BatchEngine",

@@ -8,7 +8,7 @@ Mirrors ``datok_tpu/cli.py`` (itself the reference CLI, cmd/datok.go):
         [--batch] [--device DEVICE]
     datok-tpu-torch corpus -t TOKENIZER -o OUT_DIR FILES... [--device DEVICE]
 
-``convert`` and the flag set are the JAX CLI's own (imported).
+``convert`` and the flag set are the JAX CLI's own (copied).
 ``tokenize`` runs the host oracle, and with ``--batch`` streams the
 input through the port's batched engine (``tokenize_reader``);
 ``corpus`` runs the resumable :class:`CorpusRunner` on the overlapped
@@ -29,14 +29,44 @@ import zlib
 
 import torch
 
-from datok_tpu.cli import cmd_convert, make_flags
-from datok_tpu.fsa.io import load_tokenizer_file
-from datok_tpu.runtime.oracle import transduce_reader
-from datok_tpu.runtime.writer import TokenWriter
-
+from .fsa.double_array import DaTokenizer
+from .fsa.foma import load_foma_file
+from .fsa.io import load_tokenizer_file
+from .fsa.matrix import MatrixTokenizer
 from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
+from .runtime.oracle import transduce_reader
 from .runtime.pipeline import tokenize_reader
+from .runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS, SENTENCES,
+                             TOKEN_POS, TOKENS, TokenWriter)
+
+
+def cmd_convert(args) -> int:
+    auto = load_foma_file(args.foma)
+    if args.double_array:
+        dat = DaTokenizer.from_automaton(auto)
+        print("Load factor", dat.load_factor())
+        dat.save(args.tokenizer)
+    else:
+        mat = MatrixTokenizer.from_automaton(auto)
+        mat.save(args.tokenizer)
+    print("File successfully converted.")
+    return 0
+
+
+def make_flags(args) -> int:
+    flags = 0
+    if args.tokens:
+        flags |= TOKENS
+    if args.token_positions:
+        flags |= TOKEN_POS
+    if args.sentences:
+        flags |= SENTENCES
+    if args.sentence_positions:
+        flags |= SENTENCE_POS
+    if args.newline_after_eot:
+        flags |= NEWLINE_AFTER_EOT
+    return flags
 
 
 def _engine(tok, args) -> BatchEngine:

@@ -5,24 +5,38 @@
 // XLA round loop around it (_run_machine_pallas, :737) and the event
 // compaction after it (jax_engine.py:_compact_ys, :1370).  It computes
 // what they compute together: the events and exit state of the
-// reference loop for every lane.  The TPU machinery (a hot-state
-// table fetched by one-hot matmul, the meta ring window, cold-entry
-// injection, tagged states, service steps) exists because the TPU
-// gathers serially and cannot scatter; a Hopper thread can do both, so
-// one thread runs one lane's step loop to completion.
+// reference loop for every lane.  One thread runs one lane's step loop
+// (transduce_step.cuh) to completion; the TPU's round loop, service
+// steps and cold-entry injection have no counterpart, since a Hopper
+// thread can read any cell of the table itself.
 //
-// What bounds it on this card: every step makes dependent global loads
-// (the meta word, the ε probe and the transition cell of a 12.6 MB
-// table that stays in the 50 MB L2), so a lane is latency bound, and
-// lanes of a warp diverge wherever their characters take different
-// branches.  Later work: the hot part of the table in shared memory,
-// warp-cooperative lanes, and the fused-boundary step.
+// What bounds it on this card: each step is a chain of the state's ε
+// and transition cells, whose loads wait for the step before, and
+// integer selects, so a lane is latency bound, and the wave's lanes are
+// the only parallelism (B = 32768 gives 8 warps an SM).  Measured,
+// the instructions of the step set the time, not where the cells come
+// from: the L1 already holds the hot rows when shared memory is free
+// (PERF.md).  The design:
+// - with a hot set (runtime/hot.py; the engine keeps none by default,
+//   since it made K1 slower on mixed text) the hot states' rows are
+//   staged into shared memory at block start, 16 bytes a thread at a
+//   time, so a step from a hot state is one shared-memory load; cold
+//   states read the whole table, which stays in the 50 MB L2;
+// - tagged cells tell the lane whether its next state is hot without a
+//   lookup;
+// - each lane reads its own row of the (B, L) meta, one word a step
+//   ahead of its use, whose lines stay in L1 while the lane walks them,
+//   so no transpose runs before the launch;
+// - one block per SM (the hot rows take the SM's shared memory), with
+//   ceil(B / SMs) lanes a block rounded up to a warp, so every SM gets
+//   lanes; a thread loops over lanes when B exceeds 1024 a block.
 //
-// Layout: meta is transposed, (L, B), so lanes at similar cursors read
-// neighbouring words.  Events go per lane, in step order, to row
-// ``lane`` of a (B, E) buffer with E = max_steps: a lane emits at most
-// one event per step, so the row cannot overflow, and no compaction
-// pass is needed.
+// Events go per lane, in step order, to row ``lane`` of a (B, E)
+// buffer with E = max_steps: a lane emits at most one event per step,
+// so the row cannot overflow, and no compaction pass is needed.  Each
+// block sums its lanes' cold steps and steps and adds them, with one
+// atomic each, to ``cold`` (this launch, zeroed here first) and, when
+// given, to ``cold_total`` (the engine's running sum).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,39 +45,121 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 1024;
+constexpr int kSmallThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-transduce_kernel(dt::Model m, const int32_t* __restrict__ meta_T, int32_t L,
-                 int32_t B, const int32_t* __restrict__ lengths,
+struct Outs {
+  int32_t *events, *counts, *state, *steps;
+  uint8_t* bad;
+  unsigned long long *cold, *cold_total;
+};
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
+transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
+                 int32_t n_hot_quads, const int32_t* __restrict__ meta,
+                 int32_t L, int32_t B, const int32_t* __restrict__ lengths,
                  const int32_t* __restrict__ entries,
                  const uint8_t* __restrict__ stops, int32_t max_steps,
-                 int32_t* __restrict__ events, int32_t* __restrict__ counts,
-                 uint8_t* __restrict__ bad, int32_t* __restrict__ state,
-                 int32_t* __restrict__ steps) {
-  int32_t lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= B) return;  // pad lanes of the last block
-  dt::run_lane(m, meta_T + lane, B, L, lengths[lane], entries[lane],
-               stops[lane] != 0, max_steps, events + (int64_t)lane * max_steps,
-               counts + lane, bad + lane, state + (int64_t)lane * 6,
-               steps + lane);
+                 Outs o) {
+  extern __shared__ uint4 smem_hot[];
+  __shared__ unsigned long long block_sum[2];
+  // stage the hot rows, 16 bytes a thread per load
+#pragma unroll 4
+  for (int32_t i = threadIdx.x; i < n_hot_quads; i += blockDim.x)
+    smem_hot[i] = __ldg(hot_rows + i);
+  if (threadIdx.x == 0) block_sum[0] = block_sum[1] = 0;
+  __syncthreads();
+  // (without a hot set no lane is hot and the pointer is never read)
+  m.hot = reinterpret_cast<const uint32_t*>(smem_hot);
+
+  unsigned long long cold = 0, steps = 0;
+  for (int32_t lane = blockIdx.x * blockDim.x + threadIdx.x; lane < B;
+       lane += gridDim.x * blockDim.x) {
+    cold += dt::run_lane(m, meta + (int64_t)lane * L, L, lengths[lane],
+                         entries[lane], stops[lane] != 0, max_steps,
+                         o.events + (int64_t)lane * max_steps,
+                         o.counts + lane, o.bad + lane,
+                         o.state + (int64_t)lane * 6, o.steps + lane);
+    steps += o.steps[lane];
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    cold += __shfl_down_sync(0xffffffffu, cold, d);
+    steps += __shfl_down_sync(0xffffffffu, steps, d);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&block_sum[0], cold);
+    atomicAdd(&block_sum[1], steps);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(o.cold, block_sum[0]);
+    atomicAdd(o.cold + 1, block_sum[1]);
+    if (o.cold_total != nullptr) {
+      atomicAdd(o.cold_total, block_sum[0]);
+      atomicAdd(o.cold_total + 1, block_sum[1]);
+    }
+  }
+}
+
+template <int kThreads>
+cudaError_t launch(int grid, int threads, size_t smem, cudaStream_t stream,
+                   const dt::Model& m, const uint4* hot_rows,
+                   int32_t n_hot_quads, const int32_t* meta, int32_t L,
+                   int32_t B, const int32_t* lengths, const int32_t* entries,
+                   const uint8_t* stops, int32_t max_steps, const Outs& o) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        transduce_kernel<kThreads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  transduce_kernel<kThreads><<<grid, threads, smem, stream>>>(
+      m, hot_rows, n_hot_quads, meta, L, B, lengths, entries, stops,
+      max_steps, o);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches K1 on ``stream``; returns cudaGetLastError() (0 = launched).
+// Launches K1 on ``stream``; returns a CUDA error code (0 = launched).
+// ``hot_rows`` holds ``n_hot`` cells (a multiple of 4, 0 without a hot
+// set), ``meta`` is (B, L), ``cold`` two int64; ``n_cells`` < 2^31.
 extern "C" int dt_transduce_launch(
     const uint32_t* table, int64_t n_cells, int32_t S, int32_t max_sym,
-    int32_t eps, int32_t unknown, int32_t identity, const int32_t* meta_T,
-    int32_t L, int32_t B, const int32_t* lengths, const int32_t* entries,
-    const uint8_t* stops, int32_t max_steps, int32_t* events, int32_t* counts,
-    uint8_t* bad, int32_t* state, int32_t* steps, void* stream) {
-  if (B > 0) {
-    dt::Model m{table, n_cells, S, max_sym, eps, unknown, identity};
-    int32_t grid = (B + kThreads - 1) / kThreads;
-    transduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        m, meta_T, L, B, lengths, entries, stops, max_steps, events, counts,
-        bad, state, steps);
-  }
-  return (int)cudaGetLastError();
+    int32_t eps, int32_t unknown, int32_t identity, const uint32_t* hot_rows,
+    int32_t n_hot, const int32_t* hot_of, int32_t n_hot_of, int32_t root_h,
+    uint32_t tag_mask, const int32_t* meta, int32_t L, int32_t B,
+    const int32_t* lengths, const int32_t* entries, const uint8_t* stops,
+    int32_t max_steps, int32_t* events, int32_t* counts, uint8_t* bad,
+    int32_t* state, int32_t* steps, int64_t* cold, int64_t* cold_total,
+    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), st);
+  if (e != cudaSuccess || B <= 0) return (int)e;
+  int dev = 0, n_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = (B + n_sm - 1) / n_sm;
+  int threads = ((per_sm + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  int grid = (B + threads - 1) / threads;
+  if (grid > n_sm) grid = n_sm;
+  dt::Model m{table, hot_rows, hot_of, (int32_t)n_cells, S, max_sym, eps,
+              unknown, identity, n_hot_of, root_h, tag_mask};
+  Outs o{events, counts, state, steps, bad,
+         reinterpret_cast<unsigned long long*>(cold),
+         reinterpret_cast<unsigned long long*>(cold_total)};
+  const uint4* rows = reinterpret_cast<const uint4*>(hot_rows);
+  int32_t quads = n_hot / 4;
+  size_t smem = (size_t)quads * sizeof(uint4);
+  if (threads <= kSmallThreads)
+    e = launch<kSmallThreads>(grid, threads, smem, st, m, rows, quads, meta,
+                              L, B, lengths, entries, stops, max_steps, o);
+  else
+    e = launch<kMaxThreads>(grid, threads, smem, st, m, rows, quads, meta, L,
+                            B, lengths, entries, stops, max_steps, o);
+  return (int)e;
 }

@@ -1,10 +1,28 @@
 // One lane of the reference transduce loop (matrix.go:383-697), as a
-// branchy scalar state machine.  Single C++ source of the step
-// semantics for the CUDA kernel (transduce.cu) and its host build
-// (transduce_host.cpp, for tests).  It transcribes the general-machine
-// path of datok_tpu/runtime/jax_engine.py:_make_step (:230-602; no
-// fused boundaries, no run skip): each branch below is one of that
+// scalar state machine.  Single C++ source of the step semantics for
+// the CUDA kernel (transduce.cu) and its host build (transduce_host.cpp,
+// for tests).  It transcribes the general-machine path of
+// datok_tpu/runtime/jax_engine.py:_make_step (:230-602; no fused
+// boundaries, no run skip): each predicate below is one of that
 // function's disjoint masks, and the comments name them.
+//
+// Where a lane's data comes from:
+// - table cells: a state of the hot set (runtime/hot.py) reads its row
+//   from ``Model::hot`` (shared memory in K1), any other state from the
+//   whole table.  When the engine has a hot set both hold tagged cells:
+//   bits 20..29 of a nonzero cell are the target's hot index + 1, so
+//   the lane always knows whether its next state is hot (``h``).
+//   Clearing the tag gives the original cell: every fetch is exact.
+// - meta: the lane's own row of the (B, L) meta array.  A lane keeps
+//   the word at its cursor in a register (``Lane::mv``), and each step
+//   loads the next word before it needs it: a step that moves on by one
+//   character finds the symbol of the next already loaded, so the meta
+//   load is off the step's dependent chain.  Only a jump (a backtrack,
+//   a forced bump) loads the word at the new cursor.  Consecutive reads
+//   of a lane hit the same 128-byte line, which stays in L1.  A register
+//   window of 16-byte loads was slower on an H100: the lanes of a warp
+//   refill it at different steps, so the warp runs the refill branch on
+//   most steps (PERF.md).
 #pragma once
 
 #include <stdint.h>
@@ -17,27 +35,37 @@
 
 namespace dt {
 
-// packed symbol meta (datok_tpu/runtime/encode.py)
+// packed symbol meta (runtime/encode.py)
 constexpr int32_t META_A_MASK = 0xFFFF;
 constexpr int32_t META_FOUND = 1 << 16;
 constexpr int32_t META_NONASCII = 1 << 17;
 constexpr int32_t META_EOT = 1 << 18;
-// events (datok_tpu/runtime/events.py), packed kind | start<<2 | end<<17
+// events (runtime/events.py), packed kind | start<<2 | end<<17
 constexpr uint32_t EV_TOKEN = 1, EV_SENT = 2, EV_TEXT = 3;
 constexpr int PACK_POS_BITS = 15;
 constexpr uint32_t FIRSTBIT = 0x80000000u;
 constexpr int32_t ROOT = 1;
+// tagged cells (runtime/hot.py): the target's hot index + 1
+constexpr int HOT_SHIFT = 20;
 
 // Dense matrix model: cell (a-1)*S + t, 0 = no arc, FIRSTBIT = nontoken.
+// Cell indices are 32-bit: the wrapper takes tables of fewer than 2^31
+// cells.
 struct Model {
-  const uint32_t* table;
-  int64_t n_cells;
+  const uint32_t* table;  // the whole table; tagged when tag_mask != 0
+  const uint32_t* hot;    // hot rows: cell (h-1)*max_sym + (a-1)
+  const int32_t* hot_of;  // (n_hot_of,) hot index + 1 per state, 0 = cold
+  int32_t n_cells;
   int32_t S, max_sym, eps, unknown, identity;
+  int32_t n_hot_of, root_h;
+  uint32_t tag_mask;  // bits 20..29 with a hot set, else 0
 };
 
 struct Lane {
   int32_t t, t0, a, c, b, ft, eps_s, eps_o, pend, pend2, ckpt;
-  int32_t n_backtrack, n_force, length;
+  int32_t h, h0, eps_h;  // hot index + 1 of t, t0 and eps_s (0 = cold)
+  int32_t mv;  // the meta word at the cursor c (clipped to the row)
+  int32_t n_backtrack, n_force, n_cold, length;
   bool ok, eot, newchar, sflag, tflag, stop, done;  // done = phase 1
 };
 
@@ -56,15 +84,45 @@ DT_HD uint32_t cell(const Model& m, int64_t idx) {
   return (idx >= 0 && idx < m.n_cells) ? m.table[idx] : 0u;
 }
 
-DT_HD bool eps_avail(const Model& m, int32_t t) {
-  return cell(m, (int64_t)(m.eps - 1) * m.S + t) != 0;
+// The cell of the state t with hot index + 1 ``h`` on symbol a
+// (1 <= a <= max_sym): from the hot rows when t is hot.  A state is
+// below 2^28 (entry contexts keep 28 bits), so the unsigned index
+// cannot wrap.
+DT_HD uint32_t row_cell(const Model& m, int32_t h, int32_t t, int32_t a) {
+  if (h > 0) return m.hot[(h - 1) * m.max_sym + (a - 1)];
+  uint32_t idx = (uint32_t)(a - 1) * (uint32_t)m.S + (uint32_t)t;
+  return idx < (uint32_t)m.n_cells ? m.table[idx] : 0u;
 }
 
-DT_HD void init_lane(Lane& s, int32_t entry, int32_t length, bool stop) {
+// The ε cell of state t: nonzero when a token bound is available.
+DT_HD uint32_t eps_cell(const Model& m, int32_t h, int32_t t) {
+  if (m.eps >= 1 && m.eps <= m.max_sym) return row_cell(m, h, t, m.eps);
+  return cell(m, (int64_t)(m.eps - 1) * m.S + t);
+}
+
+DT_HD int32_t hot_index(const Model& m, int32_t t) {
+  return (m.hot_of != nullptr && t >= 0 && t < m.n_hot_of) ? m.hot_of[t] : 0;
+}
+
+// Word p of the lane's meta row of L words, p clipped to [0, L-1].
+DT_HD int32_t meta_at(const int32_t* row, int32_t p, int32_t L) {
+  p = p < 0 ? 0 : (p > L - 1 ? L - 1 : p);
+#if defined(__CUDA_ARCH__)
+  return __ldg(row + p);
+#else
+  return row[p];
+#endif
+}
+
+DT_HD void init_lane(Lane& s, const Model& m, const int32_t* row, int32_t L,
+                     int32_t entry, int32_t length, bool stop) {
   // packed entry context: t | sflag<<28 | tflag<<29 | ok<<30 (1 = root)
   s.t = s.t0 = entry & 0x0FFFFFFF;
+  s.h = s.h0 = hot_index(m, s.t);
+  s.eps_h = 0;
   s.a = s.c = s.b = s.ft = s.eps_s = s.eps_o = s.pend = s.pend2 = 0;
-  s.n_backtrack = s.n_force = 0;
+  s.n_backtrack = s.n_force = s.n_cold = 0;
+  s.mv = meta_at(row, 0, L);
   s.ckpt = entry;
   s.length = length;
   s.ok = ((entry >> 30) & 1) != 0;
@@ -78,169 +136,158 @@ DT_HD void init_lane(Lane& s, int32_t entry, int32_t length, bool stop) {
 
 DT_HD bool live(const Lane& s) { return !s.done || s.pend != 0; }
 
-// Emit the step's candidate events in order: the first now, the rest
-// through the 2-deep pending queue (one event per step per lane).
-DT_HD int32_t queue(Lane& s, const int32_t* ev, int n) {
-  s.pend = n > 1 ? ev[1] : 0;
-  s.pend2 = n > 2 ? ev[2] : 0;
-  return n > 0 ? ev[0] : 0;
-}
-
-// One step of a live lane; returns the event it emits (0 for none).
-// ``meta`` points at the lane's symbol meta for position 0, and the
-// meta for position p is meta[p * stride] (p clipped to [0, L-1]).
-DT_HD int32_t step(Lane& s, const Model& m, const int32_t* meta,
-                   int64_t stride, int32_t L) {
+// One step of a lane; returns the event it emits (0 for none).  The
+// step is written as the plain machine (runtime/machine.py) writes it:
+// every path's predicate is computed, and each register takes its new
+// value through selects, so the lanes of a warp never branch apart
+// within a step.  On mixed text this beat one early-return branch per
+// path, which makes a warp run every path some lane takes; on a wave
+// whose lanes all read the same text the branches win (PERF.md).
+// ``row`` is the lane's meta row of ``L`` words (positions are clipped
+// to [0, L-1]).  A step that reads the row of a cold state counts in
+// ``n_cold``.
+DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   // m_drain: a lane with queued events drains one and does nothing else
-  if (s.pend != 0) {
-    int32_t e = s.pend;
-    s.pend = s.pend2;
-    s.pend2 = 0;
-    return e;
-  }
-  if (s.done) return 0;
-  int32_t ev[3];
-  int n = 0;
-  if (s.newchar) {
-    if (s.c >= s.length) {
-      // m_cut: a cut lane stops cleanly, its state goes to the next
-      // segment instead of flushing
-      if (s.stop) {
-        s.done = true;
-        return 0;
-      }
-      // m_eof: the epilogue (matrix.go:637-697)
-      if (eps_avail(m, s.t)) {  // echase: chase a trailing ε
-        s.t0 = s.t;
-        s.a = m.eps;
-        s.newchar = false;
-        return 0;
-      }
-      if (s.eps_s != 0) {  // ebt: back to the last token end
-        s.t0 = s.eps_s;
-        s.a = m.eps;
-        s.c = s.eps_o;
-        s.eps_s = 0;
-        s.newchar = false;
-        return 0;
-      }
-      // efin: residual flush and implicit ends; the exit context keeps
-      // the flags as they were (jax_engine.py:428-432, 494-495)
-      bool sflag = s.sflag, tflag = s.tflag;
-      if (s.c - s.b > s.ft) {  // resid
-        ev[n++] = pack(EV_TOKEN, s.b + s.ft, s.c);
-        sflag = tflag = false;
-      }
-      if (!sflag) ev[n++] = pack(EV_SENT, s.c, s.c);
-      if (!tflag) ev[n++] = pack(EV_TEXT, s.c, s.c);
-      s.done = true;
-      return queue(s, ev, n);
-    }
-    // m_read: fetch the symbol; stale ok: only the non-ASCII path
-    // reassigns it (matrix.go:426-434)
-    int32_t p = s.c < 0 ? 0 : (s.c > L - 1 ? L - 1 : s.c);
-    int32_t mv = meta[(int64_t)p * stride];
+  const bool drain = s.pend != 0;
+  const bool running = !s.done && !drain;
+  const bool new0 = running && s.newchar;
+  const bool end = new0 && s.c >= s.length;
+  const bool cut = end && s.stop;  // m_cut: stop cleanly, no flush
+  const bool eof = end && !s.stop;  // m_eof: the epilogue
+  const bool read = new0 && !end;  // m_read
+  const bool old = running && !s.newchar;  // m_old: t0 --a--> again
+  // the state whose row the step reads: t on a new character, t0
+  // otherwise (the ε probe and the transition of m_read share it)
+  s.n_cold += ((new0 && !cut) || old) && (new0 ? s.h : s.h0) == 0;
+
+  // the symbol, and the next word loaded ahead; stale ok: only the
+  // non-ASCII path reassigns it (matrix.go:426-434)
+  const int32_t mv = s.mv;
+  const int32_t mv_next = meta_at(row, s.c + 1, L);
+  if (read) {
     if (mv & META_NONASCII) s.ok = (mv & META_FOUND) != 0;
     s.a = mv & META_A_MASK;
     s.eot = (mv & META_EOT) != 0;
     s.t0 = s.t;
-    // ε probe: save the backtrack register
-    if (eps_avail(m, s.t)) {
-      s.eps_s = s.t;
-      s.eps_o = s.c;
-    }
+    s.h0 = s.h;
   }
-  // m_read | m_old: the transition t0 --a-->; symbols outside
-  // 1..max_sym read as no arc (jax_engine.py:123-126)
-  uint32_t traw = 0;
-  if (s.a > 0 && s.a <= m.max_sym)
-    traw = cell(m, (int64_t)(s.a - 1) * m.S + s.t0);
-  if (traw == 0) {
-    if (!s.ok && s.a == m.identity) {  // f1: identity failed, retry unknown
-      s.a = m.unknown;
-      s.newchar = false;
-      s.eot = false;
-      return 0;
-    }
-    if (s.a != m.eps && s.eps_s != 0) {  // f2: ε backtrack (post-probe)
-      s.t0 = s.eps_s;
-      s.c = s.eps_o;
-      s.a = m.eps;
-      s.eps_s = 0;
-      s.newchar = false;
-      s.eot = false;
-      s.n_backtrack += 1;
-      return 0;
-    }
-    // f3: force-emit the pending buffer and restart at the root
-    int32_t c3 = (s.c - s.b - s.ft <= 0) ? s.c + 1 : s.c;  // f3_bump
-    int32_t e = pack(EV_TOKEN, s.b + s.ft, c3);
-    s.t = ROOT;
-    s.a = m.eps;
-    s.c = s.b = c3;
-    s.ft = 0;
-    s.eps_s = 0;
-    s.newchar = true;
-    s.sflag = s.tflag = false;
-    s.ckpt = ctx_of(ROOT, false, false, s.ok);
-    s.n_force += 1;
-    return e;
+  // the ε probe (read) and the epilogue's chase share one cell of t;
+  // the transition cell comes from the same row on a read
+  const bool eps_here = eps_cell(m, s.h, s.t) != 0;
+  const uint32_t traw =
+      (s.a > 0 && s.a <= m.max_sym) ? row_cell(m, s.h0, s.t0, s.a) : 0u;
+  if (read && eps_here) {  // save the backtrack register
+    s.eps_s = s.t;
+    s.eps_h = s.h;
+    s.eps_o = s.c;
   }
-  // m_succ
-  bool nontok = (traw & FIRSTBIT) != 0;
-  int32_t t_succ = (int32_t)(traw & 0x7FFFFFFFu);
-  bool is_eps = s.a == m.eps;
-  bool has_pending = s.c - s.b > s.ft;
-  bool flush = is_eps && has_pending;
-  bool sent = is_eps && !has_pending;
-  int32_t c_cons = is_eps ? s.c : s.c + 1;
-  int32_t ft = s.ft;
+
+  // transition outcome; f2 reads the post-probe backtrack register
+  const bool trans = read || old;
+  const bool fail = trans && traw == 0;
+  const bool f1 = fail && !s.ok && s.a == m.identity;  // retry unknown
+  const bool f2 = fail && !f1 && s.a != m.eps && s.eps_s != 0;  // ε back
+  const bool f3 = fail && !f1 && !f2;  // force-emit, restart at the root
+  const bool succ = trans && traw != 0;
+  const bool nontok = (traw & FIRSTBIT) != 0;
+  const int32_t t_succ = (int32_t)(traw & ~m.tag_mask & 0x7FFFFFFFu);
+  const int32_t h_succ = (int32_t)((traw & m.tag_mask) >> HOT_SHIFT);
+  const bool is_eps = s.a == m.eps;
+  const bool has_pending = s.c - s.b > s.ft;
+  const bool flush = succ && is_eps && has_pending;
+  const bool sent = succ && is_eps && !has_pending;
+  const bool cons = succ && !is_eps;
+  const int32_t c_cons = cons ? s.c + 1 : s.c;
+  const int32_t c_f3 = (f3 && s.c - s.b - s.ft <= 0) ? s.c + 1 : s.c;
   // leading nontoken drop (matrix.go:579-591)
-  if (!is_eps && (c_cons - s.b) - ft == 1 && nontok) ft += 1;
+  const bool lead = cons && c_cons - s.b - s.ft == 1 && nontok;
   // EOT after the consume/ε branch (matrix.go:593-605)
-  bool sflag1 = !flush && (sent || s.sflag);
-  bool tflag1 = !flush && s.tflag;
-  bool e_m = s.eot;
-  bool sent2 = e_m && !sflag1;
-  bool rewind = flush || e_m;
-  if (flush) ev[n++] = pack(EV_TOKEN, s.b + s.ft, s.c);
-  if (sent || sent2) {
-    int32_t sp = sent2 ? c_cons : s.c;
-    ev[n++] = pack(EV_SENT, sp, sp);
+  const bool sflag1 = !flush && (sent || s.sflag);
+  const bool tflag1 = !flush && s.tflag;
+  const bool e_m = succ && s.eot;
+  const bool sent2 = e_m && !sflag1;
+  const bool rew = flush || e_m;  // a rewind (on success only)
+
+  // the epilogue (matrix.go:637-697); its exit context keeps the flags
+  // as they were (jax_engine.py:428-432, 494-495)
+  const bool echase = eof && eps_here;  // chase a trailing ε
+  const bool ebt = eof && !eps_here && s.eps_s != 0;  // back to a bound
+  const bool efin = eof && !eps_here && s.eps_s == 0;  // flush, end
+  const bool resid = efin && has_pending;
+  const bool efin_sent = efin && (resid || !s.sflag);
+  const bool efin_text = efin && (resid || !s.tflag);
+
+  // events, always ordered token, sentence, text: the first now, the
+  // rest through the 2-deep queue (one event per step per lane)
+  const bool w_tok = flush || f3 || resid;
+  const bool w_sent = sent || sent2 || efin_sent;
+  const bool w_text = e_m || efin_text;
+  const int32_t v_tok = pack(EV_TOKEN, s.b + s.ft, f3 ? c_f3 : s.c);
+  const int32_t sent_pos = sent2 ? c_cons : s.c;
+  const int32_t v_sent = pack(EV_SENT, sent_pos, sent_pos);
+  const int32_t text_pos = e_m ? c_cons : s.c;
+  const int32_t v_text = pack(EV_TEXT, text_pos, text_pos);
+  const int32_t first =
+      w_tok ? v_tok : (w_sent ? v_sent : (w_text ? v_text : 0));
+  const int32_t second = (w_tok && w_sent)
+                             ? v_sent
+                             : ((w_tok || w_sent) && w_text ? v_text : 0);
+  const int32_t third = (w_tok && w_sent && w_text) ? v_text : 0;
+  const int32_t emit = drain ? s.pend : (running ? first : 0);
+  s.pend = drain ? s.pend2 : (running ? second : s.pend);
+  s.pend2 = drain ? 0 : (running ? third : s.pend2);
+
+  // register updates (the paths are disjoint)
+  const bool back = f2 || ebt;
+  const int32_t t_new = f3 ? ROOT : (succ ? t_succ : s.t);
+  const int32_t h_new = f3 ? m.root_h : (succ ? h_succ : s.h);
+  if (back) {
+    s.t0 = s.eps_s;
+    s.h0 = s.eps_h;
+  } else if (echase) {
+    s.t0 = s.t;
+    s.h0 = s.h;
   }
-  if (e_m) ev[n++] = pack(EV_TEXT, c_cons, c_cons);
-  s.t = t_succ;
-  s.c = c_cons;
-  if (rewind) {
-    s.b = c_cons;
-    s.ft = 0;
-    s.eps_s = 0;
-    s.eps_o = 0;
-  } else {
-    s.ft = ft;
-  }
-  s.newchar = true;
-  s.eot = false;
-  s.sflag = sflag1 || sent2;
-  s.tflag = e_m || tflag1;
+  s.a = f1 ? m.unknown : ((back || f3 || echase) ? m.eps : s.a);
+  const int32_t c_new =
+      back ? s.eps_o : (f3 ? c_f3 : (succ ? c_cons : s.c));
+  s.b = f3 ? c_f3 : (rew ? c_cons : s.b);
+  s.ft = (f3 || rew) ? 0 : (lead ? s.ft + 1 : s.ft);
+  if (back || f3 || rew) s.eps_s = 0;
+  if (rew) s.eps_o = 0;
+  s.newchar = !(f1 || back || echase) && (f3 || succ || s.newchar);
+  s.eot = !(f1 || f2 || succ) && s.eot;
+  s.sflag = !f3 && (succ ? (sflag1 || sent2) : s.sflag);
+  s.tflag = !f3 && (succ ? (e_m || tflag1) : s.tflag);
+  s.done = s.done || efin || cut;
   // checkpoint the context at rewinds (a later segment resumes there)
-  if (rewind) s.ckpt = ctx_of(s.t, s.sflag, s.tflag, s.ok);
-  return queue(s, ev, n);
+  if (f3 || rew) s.ckpt = ctx_of(t_new, s.sflag, s.tflag, s.ok);
+  s.t = t_new;
+  s.h = h_new;
+  // the word at the new cursor: kept, loaded ahead, or loaded now
+  if (c_new != s.c) {
+    s.mv = c_new == s.c + 1 ? mv_next : meta_at(row, c_new, L);
+  }
+  s.c = c_new;
+  s.n_backtrack += f2;
+  s.n_force += f3;
+  return emit;
 }
 
-// Run one lane to completion or to ``max_steps`` steps and write its
-// outputs: events in step order to ev_row (capacity max_steps: at most
-// one event per step), the count, bad, the state row
-// (ctx, ckpt, b, c, n_backtrack, n_force) and the step count.
-DT_HD void run_lane(const Model& m, const int32_t* meta, int64_t stride,
-                    int32_t L, int32_t length, int32_t entry, bool stop,
-                    int32_t max_steps, int32_t* ev_row, int32_t* count,
-                    uint8_t* bad, int32_t* state_row, int32_t* steps) {
+// Run one lane (its meta ``row`` of ``L`` words) to completion or to
+// ``max_steps`` steps and write its outputs:
+// events in step order to ev_row (capacity max_steps: at most one event
+// per step), the count, bad, the state row (ctx, ckpt, b, c,
+// n_backtrack, n_force) and the step count.  Returns its cold steps.
+DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
+                       int32_t length, int32_t entry, bool stop,
+                       int32_t max_steps, int32_t* ev_row, int32_t* count,
+                       uint8_t* bad, int32_t* state_row, int32_t* steps) {
   Lane s;
-  init_lane(s, entry, length, stop);
+  init_lane(s, m, row, L, entry, length, stop);
   int32_t n = 0, k = 0;
   while (k < max_steps && live(s)) {
-    int32_t e = step(s, m, meta, stride, L);
+    int32_t e = step(s, m, row, L);
     if (e != 0) ev_row[n++] = e;
     ++k;
   }
@@ -253,6 +300,7 @@ DT_HD void run_lane(const Model& m, const int32_t* meta, int64_t stride,
   state_row[4] = s.n_backtrack;
   state_row[5] = s.n_force;
   *steps = k;
+  return s.n_cold;
 }
 
 }  // namespace dt

@@ -60,10 +60,12 @@ def _src(*names: str) -> Tuple[str, ...]:
     return tuple(os.path.join(CSRC, n) for n in names)
 
 
-# table, n_cells, S, max_sym, eps, unknown, identity, meta_T, L, B,
-# lengths, entries, stops, max_steps, events, counts, bad, state, steps
-_TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _i32,
-                   _p, _p, _p, _i32, _p, _p, _p, _p, _p)
+# table, n_cells, S, max_sym, eps, unknown, identity, hot_rows, n_hot,
+# hot_of, n_hot_of, root_h, tag_mask, meta, L, B, lengths, entries, stops,
+# max_steps, events, counts, bad, state, steps, cold, cold_total
+_TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _p,
+                   _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _p, _p,
+                   _i32, _p, _p, _p, _p, _p, _p, _p)
 # a, h, planes, H, n_planes, select, B, out
 _HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)
 # ring, R, B, planes, H, K, h0, ys, h_out

@@ -3,45 +3,54 @@
 ``transduce`` takes the same arguments and returns the same tensors as
 the plain machine (:func:`datok_tpu_torch.runtime.machine.run_machine`).
 Tensors on the CPU go to the plain machine; tensors on a CUDA device go
-to K1, and anything K1 does not take raises.  ``transduce.launches``
-counts K1 launches.
+to K1, and anything K1 does not take raises.  K1 keeps the rows of the
+tables' hot set (``tb.hot``) in shared memory; without one it reads
+every cell from the whole table.  ``transduce.launches`` counts K1
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from ..runtime.hot import HOT_TAG_MASK
 from ..runtime.machine import run_machine
 from ..runtime.rep import Tables
 from . import build
 
 
-def _check(tb: Tables, meta_T, lengths, entries, stops, max_steps):
-    dev = meta_T.device
-    if meta_T.dim() != 2:
-        raise ValueError(f"meta_T must be (L, B), got {tuple(meta_T.shape)}")
-    L, B = meta_T.shape
+def _check(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total):
+    dev = meta.device
+    if meta.dim() != 2:
+        raise ValueError(f"meta must be (B, L), got {tuple(meta.shape)}")
+    B, L = meta.shape
     if L < 1:
-        raise ValueError("meta_T needs at least one row")
+        raise ValueError("meta needs at least one column")
     if max_steps < 1:
         raise ValueError(f"max_steps must be positive, got {max_steps}")
-    for name, x, dtype in (("meta_T", meta_T, torch.int32),
+    for name, x, dtype in (("meta", meta, torch.int32),
                            ("lengths", lengths, torch.int32),
                            ("entries", entries, torch.int32),
                            ("stops", stops, torch.bool)):
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, meta_T on {dev}")
+            raise ValueError(f"{name} is on {x.device}, meta on {dev}")
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "meta_T" and tuple(x.shape) != (B,):
+        if name != "meta" and tuple(x.shape) != (B,):
             raise ValueError(f"{name} must be ({B},), got {tuple(x.shape)}")
     if tb.device != dev:
-        raise ValueError(f"tables are on {tb.device}, meta_T on {dev}")
-    return L, B
+        raise ValueError(f"tables are on {tb.device}, meta on {dev}")
+    if cold_total is not None and (cold_total.device != dev
+                                   or cold_total.dtype != torch.int64
+                                   or tuple(cold_total.shape) != (2,)):
+        raise ValueError("cold_total must be a (2,) int64 tensor on "
+                         f"{dev}")
+    return B, L
 
 
 def _outputs(B: int, max_steps: int, dev):
@@ -51,39 +60,60 @@ def _outputs(B: int, max_steps: int, dev):
         torch.empty(B, dtype=torch.bool, device=dev),
         torch.empty((B, 6), dtype=torch.int32, device=dev),
         torch.empty(B, dtype=torch.int32, device=dev),
+        torch.empty(2, dtype=torch.int64, device=dev),
     )
 
 
-def _args(tb: Tables, meta_T, lengths, entries, stops, max_steps, outs):
-    (table,) = tb.arrays
-    L, B = meta_T.shape
+def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
+          cold_total):
+    hot = tb.hot
+    if hot is None:
+        (table,) = tb.arrays
+        hot_args = [None, 0, None, 0, 0, 0]
+    else:
+        table = hot.table
+        hot_args = [hot.rows.data_ptr(), hot.rows.numel(),
+                    hot.hot_of.data_ptr(), hot.hot_of.numel(), hot.root_h,
+                    HOT_TAG_MASK]
+    B, L = meta.shape
     return [
         table.data_ptr(), tb.n_cells, tb.S, tb.max_sym, tb.eps, tb.unknown,
-        tb.identity, meta_T.data_ptr(), L, B, lengths.data_ptr(),
-        entries.data_ptr(),
-        stops.data_ptr(), max_steps, *(o.data_ptr() for o in outs),
+        tb.identity, *hot_args, meta.data_ptr(), L, B, lengths.data_ptr(),
+        entries.data_ptr(), stops.data_ptr(), max_steps,
+        *(o.data_ptr() for o in outs),
+        None if cold_total is None else cold_total.data_ptr(),
     ]
 
 
-def transduce(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
-              entries: torch.Tensor, stops: torch.Tensor, max_steps: int):
+def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
+              entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
+              cold_total: Optional[torch.Tensor] = None):
     """Run every lane of the wave; see ``run_machine`` for the
-    arguments and the returned ``(events, counts, bad, state, steps)``.
-    On a CUDA device only ``events[i, :counts[i]]`` is written."""
-    L, B = _check(tb, meta_T, lengths, entries, stops, max_steps)
-    dev = meta_T.device
+    arguments and the returned ``(events, counts, bad, state, steps,
+    cold)``.  On a CUDA device only ``events[i, :counts[i]]`` is
+    written.  ``cold_total``, a (2,) int64 tensor on the same device,
+    gains ``cold`` (on the card with atomics, so launches on several
+    streams may share it)."""
+    B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
+    dev = meta.device
     if dev.type == "cpu":
-        return run_machine(tb, meta_T, lengths, entries, stops, max_steps)
+        out = run_machine(tb, meta, lengths, entries, stops, max_steps)
+        if cold_total is not None:
+            cold_total += out[5]
+        return out
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA devices, not {dev}")
     if tb.kind != "MATOK":
         raise ValueError("K1 takes the dense matrix layout (tok.to_matrix())")
+    if tb.n_cells >= 1 << 31:
+        raise ValueError(f"{tb.n_cells} cells: K1 takes fewer than 2^31")
     lib = build.load(build.TRANSDUCE)
     outs = _outputs(B, max_steps, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dt_transduce_launch(
-            *_args(tb, meta_T, lengths, entries, stops, max_steps, outs),
+            *_args(tb, meta, lengths, entries, stops, max_steps, outs,
+                   cold_total),
             ctypes.c_void_p(stream),
         )
     if rc != 0:
@@ -95,18 +125,20 @@ def transduce(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
 transduce.launches = 0
 
 
-def transduce_host(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
-                   entries: torch.Tensor, stops: torch.Tensor, max_steps: int):
+def transduce_host(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
+                   entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
+                   cold_total: Optional[torch.Tensor] = None):
     """K1's step header compiled for the host with g++ (tests only:
-    checks the kernel's C++ step logic on machines without a GPU).
-    CPU tensors in, the same outputs as :func:`transduce` out."""
-    L, B = _check(tb, meta_T, lengths, entries, stops, max_steps)
-    if meta_T.device.type != "cpu" or tb.kind != "MATOK":
+    checks the kernel's C++ step logic, hot rows and tags included, on
+    machines without a GPU).  CPU tensors in, the same outputs as
+    :func:`transduce` out."""
+    B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
+    if meta.device.type != "cpu" or tb.kind != "MATOK":
         raise ValueError("the host build takes CPU tensors of a matrix model")
     lib = build.load(build.TRANSDUCE_HOST)
-    outs = _outputs(B, max_steps, meta_T.device)
+    outs = _outputs(B, max_steps, meta.device)
     rc = lib.dt_transduce_host(
-        *_args(tb, meta_T, lengths, entries, stops, max_steps, outs)
+        *_args(tb, meta, lengths, entries, stops, max_steps, outs, cold_total)
     )
     if rc != 0:
         raise RuntimeError(f"host build returned {rc}")

@@ -20,12 +20,11 @@ from typing import Sequence
 
 import numpy as np
 
-from datok_tpu.runtime.events import replay_events
-from datok_tpu.runtime.writer import SIMPLE, TokenWriter
-from datok_tpu.utils.native import NativeWriter
-
+from ..utils.native import NativeWriter
+from .events import replay_events
 from .overlap import waves_pipelined
 from .pipeline import _engine, split_stream
+from .writer import SIMPLE, TokenWriter
 
 
 def _sha(data: bytes) -> str:

@@ -2,11 +2,10 @@
 
 Counterpart of datok_tpu/runtime/debug.py.  Its host half
 (:func:`oracle_trace`, :func:`show_buffer`,
-:func:`divergence_debug_enabled`) is jax-free and imported; its device
-half is ported here: :func:`device_events` runs one document as one lane
-of the port's engine (``run_raw``, compact event rows), and
-:func:`dump_divergence` aligns that stream with the oracle's.  It calls
-this module's :func:`device_events`, so the JAX one cannot be imported.
+:func:`divergence_debug_enabled`, the event-kind names) is copied as it
+is; its device half is ported: :func:`device_events` runs one document
+as one lane of the port's engine (``run_raw``, compact event rows), and
+:func:`dump_divergence` aligns that stream with the oracle's.
 
 The pipelines call :func:`dump_divergence` on a lane the device flagged
 ``bad`` when ``DATOK_DEBUG_DIVERGENCE`` is set, before repairing it on
@@ -15,20 +14,50 @@ the host.
 
 from __future__ import annotations
 
+import io
+import os
 import sys
+from contextlib import redirect_stdout
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from datok_tpu.runtime.debug import (_KIND, divergence_debug_enabled,
-                                     oracle_trace, show_buffer)
-from datok_tpu.runtime.events import EV_TOKEN
-from datok_tpu.runtime.oracle import transduce_events
-
 from .decode import decode_events_compact
+from .events import EV_SENT, EV_TEXT, EV_TOKEN
+from .oracle import transduce_events
 
 __all__ = ["device_events", "divergence_debug_enabled", "dump_divergence",
            "oracle_trace", "show_buffer"]
+
+
+def oracle_trace(tok, doc: str, entry: int = 1):
+    """Scalar-oracle events + per-transition log lines for one doc."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        evs = transduce_events(tok, doc, debug=True, entry_state=entry)
+    return evs, buf.getvalue().splitlines()
+
+
+def show_buffer(text: str, b: int, c: int, width: int = 30) -> str:
+    """Reference-style buffer visualizer: text window with the pending
+    token start (``b``) and cursor (``c``) marked."""
+    lo = max(0, min(b, c) - width)
+    hi = min(len(text), max(b, c) + width)
+    out = []
+    for i in range(lo, hi):
+        if i == b:
+            out.append("⟦")
+        if i == c:
+            out.append("∣")
+        out.append(text[i].replace("\n", "\\n").replace("\x04", "␄"))
+    return "".join(out)
+
+
+_KIND = {EV_TOKEN: "TOKEN", EV_SENT: "SENT", EV_TEXT: "TEXT"}
+
+
+def divergence_debug_enabled() -> bool:
+    return bool(os.environ.get("DATOK_DEBUG_DIVERGENCE"))
 
 
 def device_events(engine, doc: str,

@@ -14,7 +14,7 @@ from typing import List
 
 import numpy as np
 
-from datok_tpu.utils.native import native_decode_events
+from ..utils.native import native_decode_events
 
 from .machine import PACK_POS_BITS, PACK_POS_MASK
 

@@ -4,29 +4,33 @@ Counterpart of ``BatchEngine`` (datok_tpu/runtime/jax_engine.py:1600-
 2251, the parts on the main path).  A wave of texts runs in this order:
 native wave encode (``SymbolEncoder.encode_batch``), the device machine
 (:func:`datok_tpu_torch.kernels.transduce.transduce`: K1 on a CUDA
-device, the plain machine on the CPU), the copy of the compact event
-rows to the host, host decode, and exact host repair of lanes that ran
-out of their step budget.  Formatting goes through the JAX package's
-``TokenWriter`` (or its native twin).
+device, the plain machine on the CPU) on the encoder's (B, L) meta as it
+is, the copy of the compact event rows to the host, host decode, and
+exact host repair of lanes that ran out of their step budget.
+Formatting goes through ``TokenWriter`` (or its native twin).  Asked
+for one, the engine chooses K1's hot set once, as the JAX engine does
+(:mod:`datok_tpu_torch.runtime.hot`); it counts the steps K1 spent on
+cold states (:attr:`BatchEngine.last_cold_share`,
+:attr:`BatchEngine.cold_share`).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from datok_tpu.runtime.encode import SymbolEncoder
-from datok_tpu.runtime.events import format_events
-from datok_tpu.runtime.writer import SIMPLE
-
 from ..kernels.transduce import transduce
 from .decode import decode_events_compact
+from .encode import SymbolEncoder
+from .hot import default_profile_texts, hot_capacity, profile_hot_states
+from .events import format_events
 from .machine import MAX_SEGMENT
+from .rep import tables_from_tokenizer, with_hot
 from .repair import transduce_doc_exact
-from .rep import tables_from_tokenizer
+from .writer import SIMPLE
 
 
 class BatchEngine:
@@ -36,9 +40,21 @@ class BatchEngine:
     card is present; ``"cpu"`` runs the plain machine.  A ``.datok``
     model is converted to the dense matrix layout, which K1 needs.
     ``steps_factor`` sets each lane's step budget (:meth:`max_steps_for`).
+
+    ``hot_size`` is the size of K1's hot set, the states whose rows K1
+    keeps in shared memory: 0 (the default) keeps none and K1 reads
+    every cell from the whole table;
+    ``"auto"`` takes the JAX engine's auto size (:func:`profile_hot_states`
+    over :func:`default_profile_texts`) capped at what one block's shared
+    memory holds (:func:`hot_capacity`, 339 states at 171 symbols); an
+    int takes that many.  On an H100 the hot set made K1 slower on every
+    wave of mixed text (PERF.md), hence the default.  A model whose cells
+    cannot carry the tags (2^20 states or more) gets none.  The hot set
+    changes where K1 reads cells, never its results.
     """
 
-    def __init__(self, tok, device, steps_factor: float = 2.0):
+    def __init__(self, tok, device, steps_factor: float = 2.0,
+                 hot_size: Union[int, str] = 0):
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -67,15 +83,54 @@ class BatchEngine:
         self.tok = tok
         self.device = device
         self.steps_factor = steps_factor
-        self.tables = tables_from_tokenizer(tok, device)
+        tables = tables_from_tokenizer(tok, device)
+        states: Sequence[int] = ()
+        if tok.type() == "MATOK":
+            cap = hot_capacity(tables.max_sym)
+            if hot_size != "auto" and not 0 <= int(hot_size) <= cap:
+                raise ValueError(f"hot_size {hot_size} is outside 0..{cap}, "
+                                 "what one block's shared memory holds")
+            limit = hot_size if hot_size == "auto" else int(hot_size)
+            if limit:
+                states = profile_hot_states(
+                    tok, default_profile_texts(tok), limit)[:cap]
+        self.tables = with_hot(tables, states)
+        self.hot_size = self.tables.hot.H if self.tables.hot else 0
         self.encoder = SymbolEncoder(tok)
+        # (steps whose state was cold, all steps): of the last launch,
+        # and summed over launches since reset_cold()
+        self._last_cold: Optional[torch.Tensor] = None
+        self._cold_total = torch.zeros(2, dtype=torch.int64, device=device)
+
+    def reset_cold(self) -> None:
+        """Start :attr:`cold_share` anew (after the launches before it
+        have finished)."""
+        self._cold_total.zero_()
+
+    @staticmethod
+    def _share(cold) -> float:
+        n_cold, n_steps = (int(x) for x in cold.tolist())
+        return n_cold / n_steps if n_steps else 0.0
+
+    @property
+    def last_cold_share(self) -> Optional[float]:
+        """The share of the last launch's steps whose state was cold
+        (outside the hot set); None before the first launch.  Reading it
+        waits for that launch."""
+        return None if self._last_cold is None else self._share(self._last_cold)
+
+    @property
+    def cold_share(self) -> float:
+        """The same over every launch since :meth:`reset_cold` (read it
+        after they have finished)."""
+        return self._share(self._cold_total)
 
     def max_steps_for(self, L: int) -> int:
         return int(self.steps_factor * L) + 64
 
     def _launch(self, meta, lengths, entries, stops):
         """The device machine on (B, L) ``meta`` and (B,) lane tensors,
-        all on the engine's device; meta is transposed to (L, B) there."""
+        all on the engine's device."""
         L = meta.shape[1]
         if L > MAX_SEGMENT:
             raise ValueError(
@@ -83,8 +138,10 @@ class BatchEngine:
                 f"{MAX_SEGMENT}; use the segmentation pipeline for longer "
                 "streams"
             )
-        return transduce(self.tables, meta.t().contiguous(), lengths, entries,
-                         stops, self.max_steps_for(L))
+        *out, self._last_cold = transduce(
+            self.tables, meta, lengths, entries, stops, self.max_steps_for(L),
+            cold_total=self._cold_total)
+        return tuple(out)
 
     def run_raw_device(self, meta: np.ndarray, lengths: np.ndarray,
                        entries: Optional[np.ndarray] = None,

@@ -13,18 +13,21 @@ tensors on the CPU, and the smoke run holds K1 against it on the card.
 Unlike the JAX machine, events go to a per-lane compact buffer in step
 order (a lane emits at most one event per step, so ``max_steps``
 columns never overflow) instead of a step-indexed ``(steps, B)``
-buffer that a later pass compacts.
+buffer that a later pass compacts.  Meta keeps the encoder's layout,
+one row per lane, as K1 reads it.  Beside K1's outputs the machine
+counts the steps whose state was cold (outside the tables' hot set),
+as K1 does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from datok_tpu.runtime.encode import (META_A_MASK, META_EOT, META_FOUND,
-                                      META_NONASCII)
-from datok_tpu.runtime.events import EV_SENT, EV_TEXT, EV_TOKEN
+from .encode import (META_A_MASK, META_EOT, META_FOUND,
+                     META_NONASCII)
+from .events import EV_SENT, EV_TEXT, EV_TOKEN
 
-from .rep import Tables, eps_avail, transition
+from .rep import Tables, _take, eps_avail, transition
 
 # Packed-event layout: kind(2) | start(15) | end(15) (jax_engine.py:73-76)
 PACK_POS_BITS = 15
@@ -46,26 +49,31 @@ def _ctx(t, sflag, tflag, ok):
             | (ok.to(torch.int32) << 30))
 
 
-def run_machine(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
+def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
                 entries: torch.Tensor, stops: torch.Tensor, max_steps: int):
     """Run every lane to completion or to ``max_steps`` steps.
 
-    ``meta_T`` (L, B) int32: packed symbol metas, transposed
-    (``SymbolEncoder.encode_batch`` rows are lanes); ``lengths`` (B,)
+    ``meta`` (B, L) int32: packed symbol metas, one row per lane
+    (``SymbolEncoder.encode_batch``); ``lengths`` (B,)
     int32; ``entries`` (B,) int32 packed entry contexts
     ``t | sflag<<28 | tflag<<29 | ok<<30`` (1 = fresh root); ``stops``
     (B,) bool: cut lanes stop at their end without the EOF epilogue.
 
     Returns ``(events (B, max_steps) int32, counts (B,) int32,
-    bad (B,) bool, state (B, 6) int32, steps (B,) int32)``: lane i's
+    bad (B,) bool, state (B, 6) int32, steps (B,) int32, cold (2,)
+    int64)``: lane i's
     packed events ``kind | start<<2 | end<<17`` are
     ``events[i, :counts[i]]`` in step order (later columns are 0);
     ``state`` rows are ``(ctx, ckpt, b, c, n_backtrack, n_force)`` as
     in ``_finish``; ``steps`` counts each lane's steps, and a lane is
     ``bad`` when it had not finished after ``max_steps`` of them.
+    ``cold`` is (steps whose state was cold, all steps) over the wave: a
+    step is cold when it reads the row of a state (``t`` on a new
+    character and at the end, ``t0`` otherwise) outside ``tb.hot``;
+    drain steps and cuts read no row.
     """
-    L, B = meta_T.shape
-    dev = meta_T.device
+    B, L = meta.shape
+    dev = meta.device
     i32 = torch.int32
     zeros = torch.zeros(B, dtype=i32, device=dev)
     false = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -99,6 +107,8 @@ def run_machine(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
     counts = zeros.clone()
     lane = torch.arange(B, device=dev)
     eps, unknown, identity = tb.eps, tb.unknown, tb.identity
+    hot_of = tb.hot.hot_of if tb.hot is not None else None
+    n_cold = torch.zeros(B, dtype=torch.int64, device=dev)
 
     def w(m, x, y):
         return torch.where(m, x, y)
@@ -116,10 +126,11 @@ def run_machine(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
         m_eof = m_end & ~stop
         m_read = m_new0 & ~m_end
         m_old = running & ~newchar
+        t_row, t0_row = t, t0
 
         # ---- newchar: symbol metadata -----------------------------------
         cc = c.clamp(0, L - 1).long()
-        meta_v = meta_T.gather(0, cc[None, :])[0]
+        meta_v = meta.gather(1, cc[:, None])[:, 0]
         a_new = meta_v & META_A_MASK
         found_new = (meta_v & META_FOUND) != 0
         nonascii_new = (meta_v & META_NONASCII) != 0
@@ -225,9 +236,17 @@ def run_machine(tb: Tables, meta_T: torch.Tensor, lengths: torch.Tensor,
         n_backtrack = n_backtrack + f2.to(i32)
         n_force = n_force + f3.to(i32)
         steps = steps + live.to(i32)
+        # the state whose row the step read: t on a new character, t0
+        # otherwise (the probe and the transition of m_read share it)
+        reads = (m_new0 & ~m_cut) | m_old
+        if hot_of is not None:
+            hot = _take(hot_of, w(m_new0, t_row, t0_row).long()) != 0
+            reads = reads & ~hot
+        n_cold = n_cold + reads.to(torch.int64)
 
     bad = (phase == 0) | (pend != 0)
     state = torch.stack(
         [_ctx(t, sflag, tflag, ok), ckpt, b, c, n_backtrack, n_force], dim=-1
     )
-    return events[:, :max_steps], counts, bad, state, steps
+    cold = torch.stack([n_cold.sum(), steps.to(torch.int64).sum()])
+    return events[:, :max_steps], counts, bad, state, steps, cold

@@ -48,19 +48,18 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from datok_tpu.runtime.encode import text_to_codepoints
-from datok_tpu.runtime.events import replay_events
-from datok_tpu.runtime.writer import SIMPLE, TokenWriter
-from datok_tpu.utils.native import native_encode_wave
-
 from ..kernels import build
+from ..utils.native import native_encode_wave
 from .debug import divergence_debug_enabled, dump_divergence
 from .decode import decode_events_flat
+from .encode import text_to_codepoints
 from .engine import BatchEngine
+from .events import replay_events
 from .machine import MAX_SEGMENT
 from .pipeline import (_engine, eot_in_sigma, events_speculative_batch,
                        predict_entries, split_stream)
 from .repair import transduce_doc_exact
+from .writer import SIMPLE, TokenWriter
 
 
 class _Wave:

@@ -34,10 +34,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from datok_tpu.fsa.io import FIRSTBIT, RESTBIT
-from datok_tpu.runtime.encode import text_to_codepoints
-from datok_tpu.runtime.events import EV_SENT, replay_events
-from datok_tpu.runtime.writer import SIMPLE, TokenWriter
+from ..fsa.io import FIRSTBIT, RESTBIT
+from .encode import text_to_codepoints
+from .events import EV_SENT, replay_events
+from .writer import SIMPLE, TokenWriter
 
 from .debug import divergence_debug_enabled
 from .decode import decode_events_compact

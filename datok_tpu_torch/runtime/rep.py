@@ -1,22 +1,43 @@
 """Transition tables on a torch device.
 
 Counterpart of ``MatrixRep``, ``DoubleArrayRep`` and ``make_rep``
-(datok_tpu/runtime/jax_engine.py:104-175).  The tables are the JAX
-package's own numpy arrays (``tok.array``, or ``tok.base`` and
-``tok.check``), reinterpreted as int32 so that torch can hold them:
-both packages compute on the same bytes.  Bit tests therefore read
-``FIRSTBIT`` (1<<31) as the sign bit.
+(datok_tpu/runtime/jax_engine.py:104-175).  The tables are the model's
+own numpy arrays (``tok.array``, or ``tok.base`` and ``tok.check``),
+reinterpreted as int32 so that torch can hold them: the port computes
+on the same bytes as the JAX package.  Bit tests therefore read
+``FIRSTBIT`` (1<<31) as the sign bit.  A matrix model's tables may also
+carry K1's hot set (:class:`HotTable`, :func:`with_hot`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from datok_tpu.fsa.io import RESTBIT  # bits 0..29: state id / base offset
+from ..fsa.io import RESTBIT  # bits 0..29: state id / base offset
+from .hot import pack_hot
+
+
+@dataclass(frozen=True)
+class HotTable:
+    """K1's hot set on a device (:func:`datok_tpu_torch.runtime.hot.pack_hot`):
+    ``states`` (H,) state ids, hot index = position; ``table`` the whole
+    table with tagged cells; ``rows`` the hot states' tagged rows, which
+    K1 stages into shared memory; ``hot_of`` (S+1,) each state's hot
+    index + 1 (0 = cold); ``root_h`` the root's."""
+
+    states: np.ndarray
+    table: torch.Tensor
+    rows: torch.Tensor
+    hot_of: torch.Tensor
+    root_h: int
+
+    @property
+    def H(self) -> int:
+        return len(self.states)
 
 
 @dataclass(frozen=True)
@@ -38,6 +59,7 @@ class Tables:
     n_cells: int
     max_sym: int
     size: int
+    hot: Optional[HotTable] = None
 
     @property
     def device(self) -> torch.device:
@@ -70,6 +92,28 @@ def tables_from_tokenizer(tok, device) -> Tables:
         unknown=int(tok.unknown), identity=int(tok.identity),
         n_cells=n_cells, max_sym=max_sym, size=size,
     )
+
+
+def with_hot(tb: Tables, states: Sequence[int]) -> Tables:
+    """``tb`` with the hot set ``states`` packed for K1; without one when
+    ``states`` is empty, the model is not a matrix, or the tags do not
+    fit (:func:`datok_tpu_torch.runtime.hot.pack_hot` returns None)."""
+    if tb.kind != "MATOK" or len(states) == 0:
+        return replace(tb, hot=None)
+    (table,) = tb.arrays
+    raw = table.cpu().numpy().view(np.uint32)
+    packed = pack_hot(raw, tb.S, tb.max_sym, states)
+    if packed is None:
+        return replace(tb, hot=None)
+    tagged, rows, hot_of = packed
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(tb.device)
+
+    return replace(tb, hot=HotTable(
+        states=np.asarray(states, dtype=np.int64), table=put(tagged),
+        rows=put(rows), hot_of=put(hot_of),
+        root_h=int(hot_of[1]) if tb.S >= 1 else 0))
 
 
 def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

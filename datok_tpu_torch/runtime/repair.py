@@ -11,8 +11,8 @@ from __future__ import annotations
 
 from typing import List
 
-from datok_tpu.runtime.oracle import transduce_events, transduce_events_fast
-from datok_tpu.utils.native import native_cut_walk, native_encode
+from ..utils.native import native_cut_walk, native_encode
+from .oracle import transduce_events, transduce_events_fast
 
 
 def transduce_doc_exact(tok, doc: str, entry: int, cut: bool,

@@ -31,9 +31,9 @@ from __future__ import annotations
 import random
 from typing import List, Sequence, Union
 
-from datok_tpu.fsa.automaton import Automaton, Edge
-from datok_tpu.fsa.double_array import DaTokenizer
-from datok_tpu.fsa.matrix import MatrixTokenizer
+from ..fsa.automaton import Automaton, Edge
+from ..fsa.double_array import DaTokenizer
+from ..fsa.matrix import MatrixTokenizer
 
 EPS, UNKNOWN, IDENTITY, TOKENEND = 1, 2, 3, 4
 N_COLUMNS = 171  # symbol columns of the DE model's matrix

@@ -20,6 +20,7 @@ from datok_tpu_torch import cli
 from datok_tpu_torch.runtime.corpus import CorpusRunner
 from datok_tpu_torch.runtime.engine import BatchEngine
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ABBREV, SEED = 200, 7
@@ -42,7 +43,8 @@ def engines(models):
 
 @pytest.fixture(scope="module")
 def jax_engines(models):
-    return {k: JaxEngine(m, engine="general") for k, m in models.items()}
+    return {k: JaxEngine(jax_twin(m), engine="general")
+            for k, m in models.items()}
 
 
 def _write(tmp_path, texts, prefix="in"):
@@ -78,7 +80,8 @@ def test_corpus_resume_matches_jax(models, engines, jax_engines, tmp_path,
 
     def run_both():
         a = CorpusRunner(tok, out, engine=engines[kind]).run(files)
-        b = JaxCorpusRunner(tok, jout, engine=jax_engines[kind]).run(files)
+        b = JaxCorpusRunner(jax_engines[kind].tok, jout,
+                        engine=jax_engines[kind]).run(files)
         assert a == b
         return a
 
@@ -121,7 +124,8 @@ def test_corpus_shared_waves_fresh_chains(models, engines, jax_engines,
     out, jout = str(tmp_path / "out"), str(tmp_path / "jout")
     a = CorpusRunner(tok, out, engine=engines[kind]).run(
         files, stats=st, pack_len=pack_len)
-    b = JaxCorpusRunner(tok, jout, engine=jax_engines[kind]).run(
+    b = JaxCorpusRunner(jax_engines[kind].tok, jout,
+                        engine=jax_engines[kind]).run(
         files, stats=jst, pack_len=pack_len)
     assert a == b and a["done"] == len(files)
     for k in ("docs", "waves", "repairs", "long_docs"):

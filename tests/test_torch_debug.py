@@ -12,6 +12,7 @@ from datok_tpu.runtime.oracle import transduce_events
 from datok_tpu_torch.runtime import debug as D
 from datok_tpu_torch.runtime.machine import PACK_POS_BITS
 from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 DOC = "Der alte Mann ging heim. Er sagte z.B. nichts!"
 
@@ -30,8 +31,8 @@ def test_device_events_equal_oracle(tok, eng):
     for entry in (1, 1 | (1 << 28) | (1 << 29)):
         evs, bad = D.device_events(eng, DOC, entry=entry)
         assert not bad
-        assert [tuple(e) for e in evs] == transduce_events(tok, DOC,
-                                                           entry_state=entry)
+        assert [tuple(e) for e in evs] == transduce_events(
+            jax_twin(tok), DOC, entry_state=entry)
 
 
 def test_dump_divergence_none_on_match(eng):
@@ -60,12 +61,22 @@ def test_dump_reports_first_mismatch(eng, monkeypatch):
     assert "divergence" in text and "oracle[" in text and "device[" in text
 
 
-def test_host_half_is_the_jax_modules():
+def test_host_half_is_the_jax_modules(tok, monkeypatch):
+    """The host half is the JAX module's, copied: the same trace, buffer
+    view, kind names and switch, from the port's own code."""
     import datok_tpu.runtime.debug as JD
 
-    assert D.oracle_trace is JD.oracle_trace
-    assert D.show_buffer is JD.show_buffer
-    assert D.divergence_debug_enabled is JD.divergence_debug_enabled
+    assert D.oracle_trace is not JD.oracle_trace
+    for doc, entry in ((DOC, 1), ("Mann.\x04z.B. 3.", 1 | (1 << 28))):
+        assert D.oracle_trace(tok, doc, entry) == JD.oracle_trace(
+            jax_twin(tok), doc, entry)
+    for b, c in ((4, 8), (0, 0), (20, 3)):
+        assert D.show_buffer(DOC + "\x04\n", b, c) == JD.show_buffer(
+            DOC + "\x04\n", b, c)
+    assert D._KIND == JD._KIND
+    for value in ("", "1"):
+        monkeypatch.setenv("DATOK_DEBUG_DIVERGENCE", value)
+        assert D.divergence_debug_enabled() == JD.divergence_debug_enabled()
     s = D.show_buffer("Der alte Mann ging heim.", 4, 8)
     assert s.index("⟦") < s.index("∣")
 

@@ -8,13 +8,19 @@ import numpy as np
 import pytest
 import torch
 
-from datok_tpu.fsa.automaton import Automaton, Edge
-from datok_tpu.fsa.matrix import MatrixTokenizer
 from datok_tpu.runtime.jax_engine import BatchEngine as JaxEngine
 from datok_tpu_torch import BatchEngine
+from datok_tpu_torch.fsa.automaton import Automaton, Edge
+from datok_tpu_torch.fsa.matrix import MatrixTokenizer
+from datok_tpu_torch.kernels.transduce import transduce_host
 from datok_tpu_torch.runtime import decode
+from datok_tpu_torch.runtime import engine as engine_mod
+from datok_tpu_torch.runtime.hot import hot_capacity
 from datok_tpu_torch.runtime.machine import MAX_SEGMENT
+from datok_tpu_torch.runtime.oracle import transduce_events
+from datok_tpu_torch.runtime.rep import with_hot
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 N_ABBREV, SEED = 380, 5
 EDGE = [
@@ -38,7 +44,7 @@ def texts(tok):
 
 @pytest.fixture(scope="module")
 def pallas(tok):
-    return JaxEngine(tok, engine="pallas", pallas_interpret=True,
+    return JaxEngine(jax_twin(tok), engine="pallas", pallas_interpret=True,
                      kernel_bl=128, kernel_k=16)
 
 
@@ -176,3 +182,89 @@ def test_full_size_synthetic_model_has_de_shape():
     texts = synth_text(tok, 6, 200, seed=1) + ["z.B. bzw. Abk. usw.\x04"]
     assert (BatchEngine(tok, device="cpu").tokenize_batch(texts)
             == [tok.tokenize(t) for t in texts])
+
+
+# ---- K1's host build on the engine's path, with hot sets --------------------
+
+def _engine(tok, texts, hot, **kw):
+    """An engine with the hot set ``hot``: 0, 1, 8 or auto states as the
+    engine chooses them, or (``"skip_top"``) 64 states that leave out
+    the 8 the texts visit most."""
+    if hot != "skip_top":
+        return BatchEngine(tok, device="cpu", hot_size=hot, **kw)
+    eng = BatchEngine(tok, device="cpu", hot_size=0, **kw)
+    counter = {}
+    for t in texts:
+        transduce_events(tok, t, state_counter=counter)
+    ranked = sorted(counter, key=lambda s: -counter[s])
+    eng.tables = with_hot(eng.tables, ranked[8:72])
+    return eng
+
+
+@pytest.mark.parametrize("hot", [0, 1, 8, "auto", "skip_top"])
+def test_host_build_final_bytes_match_pallas_and_oracle(monkeypatch, tok, texts,
+                                                        pallas, pallas_out,
+                                                        hot):
+    """The engine's path with K1's C++ step (g++ host build, hot rows
+    and tags) in the place of the device machine: every lane's final
+    bytes, forced ``bad`` lanes repaired on the host, and events and
+    exit contexts from non-root entries with cuts equal to the Pallas
+    engine's and the oracle's."""
+    calls = []
+
+    def host(*args, **kw):
+        calls.append(args[0].hot)
+        return transduce_host(*args, **kw)
+
+    entries, stops = _entries_stops(tok, texts)
+    monkeypatch.setattr(engine_mod, "transduce", host)
+    want, want_exits = pallas.events_batch(texts, entries=entries, stops=stops,
+                                           return_exits=True)
+    for factor in (2.0, 0.05):
+        eng = _engine(tok, texts, hot, steps_factor=factor)
+        assert eng.tokenize_batch(texts) == pallas_out
+        assert pallas_out == [tok.tokenize(t) for t in texts]
+        got, got_exits = eng.events_batch(texts, entries=entries, stops=stops,
+                                          return_exits=True)
+        assert got == want
+        if factor == 2.0:
+            np.testing.assert_array_equal(got_exits, want_exits)
+        else:
+            meta, lengths, _ = eng.encoder.encode_batch(texts)
+            assert eng.run_raw(meta, lengths)[2].sum() > len(texts) // 2
+            np.testing.assert_array_equal(got_exits[stops], want_exits[stops])
+    assert calls and all((h is None) == (hot == 0) for h in calls)
+
+
+def test_hot_size_choice_and_cold_share(tok, texts):
+    """The default keeps no hot set; "auto" takes the JAX auto size
+    capped at one block's shared memory; an int takes that many; more
+    than fits raises; a double array runs as its matrix, with a hot set
+    when asked.  The engine counts cold steps per launch and since
+    ``reset_cold``."""
+    cap = hot_capacity(171)
+    assert cap == 339
+    default = BatchEngine(tok, device="cpu")
+    assert default.hot_size == 0 and default.tables.hot is None
+    auto = BatchEngine(tok, device="cpu", hot_size="auto")
+    assert auto.hot_size == cap == auto.tables.hot.H
+    assert auto.tables.hot.states[0] == 1 and auto.tables.hot.root_h == 1
+    assert BatchEngine(tok, device="cpu", hot_size=8).hot_size == 8
+    assert BatchEngine(tok, device="cpu", hot_size=0).tables.hot is None
+    with pytest.raises(ValueError, match="shared memory"):
+        BatchEngine(tok, device="cpu", hot_size=cap + 1)
+    da = BatchEngine(synth_datok(60, 1), device="cpu", hot_size="auto")
+    assert da.tables.kind == "MATOK" and da.hot_size > 0
+    assert auto.last_cold_share is None and auto.cold_share == 0.0
+    auto.events_batch(texts[:20])
+    first = auto.last_cold_share
+    auto.events_batch(texts[20:])
+    assert 0 <= first < 0.1 and 0 <= auto.last_cold_share < 0.1
+    both = auto.cold_share
+    assert min(first, auto.last_cold_share) <= both <= max(
+        first, auto.last_cold_share)
+    auto.reset_cold()
+    assert auto.cold_share == 0.0
+    none = BatchEngine(tok, device="cpu", hot_size=0)
+    none.events_batch(texts)
+    assert none.cold_share > 0.9

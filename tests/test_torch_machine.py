@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from datok_tpu.runtime.encode import SymbolEncoder
 from datok_tpu.runtime.jax_engine import _run_machine, make_rep
 from datok_tpu_torch.runtime.decode import (decode_events_batch,
                                             decode_events_compact)
+from datok_tpu_torch.runtime.encode import SymbolEncoder
 from datok_tpu_torch.runtime.machine import run_machine
 from datok_tpu_torch.runtime.rep import tables_from_tokenizer
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 N_ABBREV, SEED = 300, 11
 
@@ -51,7 +52,7 @@ def wave(tok):
 
 
 def _jax(tok, meta, lengths, entries, stops, max_steps):
-    rep = make_rep(tok)
+    rep = make_rep(jax_twin(tok))
     ys, bad, steps, state = _run_machine(
         tuple(jnp.asarray(t) for t in rep.tables), jnp.asarray(meta),
         jnp.asarray(lengths), jnp.asarray(entries), jnp.asarray(stops),
@@ -64,9 +65,8 @@ def _jax(tok, meta, lengths, entries, stops, max_steps):
 
 
 def _torch(tok, meta, lengths, entries, stops, max_steps):
-    ev, counts, bad, state, steps = run_machine(
-        tables_from_tokenizer(tok, "cpu"),
-        torch.from_numpy(np.ascontiguousarray(meta.T)),
+    ev, counts, bad, state, steps, _cold = run_machine(
+        tables_from_tokenizer(tok, "cpu"), torch.from_numpy(meta),
         torch.from_numpy(lengths), torch.from_numpy(entries),
         torch.from_numpy(stops), max_steps,
     )

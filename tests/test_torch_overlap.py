@@ -20,6 +20,7 @@ from datok_tpu.runtime.jax_engine import BatchEngine as JaxEngine
 from datok_tpu_torch.runtime import overlap as O
 from datok_tpu_torch.runtime import pipeline as P
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 N_ABBREV, SEED = 200, 7
 KINDS = ["matok", "datok", "noeot"]
@@ -57,7 +58,8 @@ def engines(models):
 
 @pytest.fixture(scope="module")
 def jax_engines(models):
-    return {k: JaxEngine(m, engine="general") for k, m in models.items()}
+    return {k: JaxEngine(jax_twin(m), engine="general")
+            for k, m in models.items()}
 
 
 def _both(models, engines, jax_engines, kind, text, **kw):
@@ -67,7 +69,8 @@ def _both(models, engines, jax_engines, kind, text, **kw):
     st, jst = {}, {}
     got = dtt.tokenize_stream_pipelined(tok, text, engine=engines[kind],
                                         stats=st, **kw).getvalue()
-    want = JO.tokenize_stream_pipelined(tok, text, engine=jax_engines[kind],
+    jeng = jax_engines[kind]
+    want = JO.tokenize_stream_pipelined(jeng.tok, text, engine=jeng,
                                         stats=jst, **kw).getvalue()
     return got, want, st, jst
 
@@ -212,11 +215,11 @@ def test_bad_lanes_are_repaired_exactly(models, kind):
     # steps the budget leaves them
     text = "\x04".join(synth_text(tok, 10, 150, seed=SEED + 3)) + STREAM
     eng = dtt.BatchEngine(tok, device="cpu", steps_factor=0.1)
-    jeng = JaxEngine(tok, engine="general", steps_factor=0.1)
+    jeng = JaxEngine(jax_twin(tok), engine="general", steps_factor=0.1)
     st = {}
     got = dtt.tokenize_stream_pipelined(tok, text, engine=eng, lanes=7,
                                         pack_len=0, stats=st).getvalue()
-    want = JO.tokenize_stream_pipelined(tok, text, engine=jeng, lanes=7,
+    want = JO.tokenize_stream_pipelined(jeng.tok, text, engine=jeng, lanes=7,
                                         pack_len=0).getvalue()
     assert st["repairs"] > 0
     assert got == want == tok.tokenize(text)

@@ -13,10 +13,12 @@ import pytest
 
 import datok_tpu.runtime.pipeline as JP
 import datok_tpu_torch as dtt
+from datok_tpu.runtime.encode import SymbolEncoder as JaxEncoder
 from datok_tpu.runtime.jax_engine import BatchEngine as JaxEngine
 from datok_tpu.runtime.oracle import transduce_events
 from datok_tpu_torch.runtime import pipeline as P
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
+from torch_twins import jax_twin
 
 N_ABBREV, SEED = 200, 7
 KINDS = ["matok", "datok", "noeot"]
@@ -38,7 +40,8 @@ def engines(models):
 
 @pytest.fixture(scope="module")
 def jax_engines(models):
-    return {k: JaxEngine(m, engine="general") for k, m in models.items()}
+    return {k: JaxEngine(jax_twin(m), engine="general")
+            for k, m in models.items()}
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +97,8 @@ def test_tokenize_stream_matches_jax_pipeline(models, engines, jax_engines,
     tok = models[kind]
     text = _streams(tok)[name]
     got = dtt.tokenize_stream(tok, text, engine=engines[kind]).getvalue()
-    want = JP.tokenize_stream(tok, text, engine=jax_engines[kind]).getvalue()
+    jeng = jax_engines[kind]
+    want = JP.tokenize_stream(jeng.tok, text, engine=jeng).getvalue()
     assert got == want
 
 
@@ -124,7 +128,7 @@ def test_long_documents_match_jax(models, engines, jax_engine, fn, seg_len):
     np.testing.assert_array_equal(got_exits, want_exits)
     # the documents run from the root without a cut equal the oracle
     for k in np.flatnonzero((entries == 1) & ~stops):
-        assert got[k] == transduce_events(tok, docs[k]), k
+        assert got[k] == transduce_events(jax_engine.tok, docs[k]), k
 
 
 @pytest.mark.parametrize("strategy", ["speculative", "chained"])
@@ -204,7 +208,8 @@ def test_tokenize_reader_matches_jax_reader(models, engines, jax_engine):
     text = _reader_text(tok)
     got = dtt.tokenize_reader(tok, io.BytesIO(text.encode()), engine=engines["matok"],
                               chunk_bytes=256, seg_len=48).getvalue()
-    want = JP.tokenize_reader(tok, io.BytesIO(text.encode()), engine=jax_engine,
+    want = JP.tokenize_reader(jax_engine.tok, io.BytesIO(text.encode()),
+                              engine=jax_engine,
                               chunk_bytes=256, seg_len=48).getvalue()
     assert got == want
 
@@ -219,8 +224,9 @@ def test_events_until_checkpoint_resumes_exactly(models, engines, jax_engine, en
     assert 0 < ck_pos <= len(text)
     assert (evs, ck_pos, ck_ctx) == JP.events_until_checkpoint(
         jax_engine, text, entry=e0, seg_len=64)
-    rest = transduce_events(tok, text, entry_state=ck_ctx, start=ck_pos)
-    assert evs + rest == transduce_events(tok, text, entry_state=e0)
+    jtok = jax_engine.tok
+    rest = transduce_events(jtok, text, entry_state=ck_ctx, start=ck_pos)
+    assert evs + rest == transduce_events(jtok, text, entry_state=e0)
 
 
 def test_stream_needs_engine_or_device(models):
@@ -245,7 +251,8 @@ def test_stale_ok_after_equals_jax(models):
         for _ in range(6):
             docs.append("".join(rng.choice(pool, n)))
     known = frozenset(enc.keys.tolist())
+    jenc = JaxEncoder(jax_twin(models["matok"]))
     for doc in docs:
         for ok in (0, 1):
             assert P._stale_ok_after(known, doc, ok) == JP._stale_ok_after(
-                enc, doc, ok), (doc[:20], len(doc), ok)
+                jenc, doc, ok), (doc[:20], len(doc), ok)

@@ -1,0 +1,97 @@
+"""The SASS reader that counts the instructions of K1's step loop
+(``datok_tpu_torch.kernels.sass``), on small listings in the form
+``cuobjdump -sass`` prints.  It is a host tool of the port with no
+counterpart in the JAX package."""
+
+import pytest
+
+from datok_tpu_torch.kernels import sass as S
+
+
+def _listing(name, body):
+    lines = [f"\t\tFunction : {name}", "\t.headerflags\t@\"EF_CUDA_SM90\""]
+    for i, ins in enumerate(body):
+        lines.append(f"        /*{16 * i:04x}*/                   {ins} ;"
+                     "      /* 0x000000000000794d */")
+        lines.append("                                             "
+                     "/* 0x000fea0003800000 */")
+    return "\n".join(lines) + "\n"
+
+
+# an outer loop (1..11) around an inner one (3..9) with a branch that
+# skips three instructions, a loop exit and a predicated instruction
+KERNEL = [
+    "MOV R1, c[0x0][0x28]",            # 0
+    "IMAD.MOV.U32 R2, RZ, RZ, RZ",     # 1 outer head
+    "ISETP.GE.AND P0, PT, R2, R3, PT",  # 2
+    "LDG.E R4, desc[UR4][R6.64]",      # 3 inner head
+    "@P1 BRA P2, 0xc0",                # 4 leaves the loop
+    "@P0 BRA 0x90",                    # 5 skips 6..8
+    "IADD3 R4, R4, 0x1, RZ",           # 6
+    "SEL R5, R4, RZ, P0",              # 7
+    "@!P3 IMAD R5, R5, 0x3, RZ",       # 8 issues even when P3 holds
+    "@!P0 BRA 0x30",                   # 9 inner latch
+    "VIADD R2, R2, 0x1",               # 10
+    "@P4 BRA 0x10",                    # 11 outer latch
+    "EXIT",                            # 12
+    "BRA 0xd0",                        # 13 the trap after EXIT
+    "NOP",                             # 14
+]
+
+
+def test_functions_reads_every_instruction():
+    text = _listing("_Z1kv", KERNEL) + _listing("_Z1gv", ["EXIT", "NOP"])
+    fns = S.functions(text)
+    assert list(fns) == ["_Z1kv", "_Z1gv"]
+    code = fns["_Z1kv"]
+    assert [c.addr for c in code] == [16 * i for i in range(len(KERNEL))]
+    assert code[4].op == "BRA" and code[4].guarded and code[4].target == 0xc0
+    assert not code[4].always_jumps  # BRA P2, x falls through on !P2
+    assert code[13].always_jumps and code[13].target == 0xd0
+    assert code[8].guarded and code[8].op == "IMAD" and code[8].target is None
+    assert code[3].op == "LDG.E"
+
+
+def test_innermost_loop_and_its_shortest_pass():
+    code = S.functions(_listing("_Z1kv", KERNEL))["_Z1kv"]
+    # the trap that ends every listing is a loop of one instruction
+    assert S.innermost_loops(code) == [(3, 9), (13, 13)]
+    # 3, 4, 5 then the branch to 9: four instructions; the exit at 4
+    # ends no pass, so it does not shorten it
+    assert S.min_path(code, 3, 9) == 4
+    # the outer loop's body, with the inner loop passed once
+    assert S.min_path(code, 1, 11) == 8
+    assert S.loop_min_instructions(_listing("_Z1kv", KERNEL), "_Z1k") == (4, 7)
+
+
+def test_the_largest_innermost_loop_is_taken():
+    body = ["MOV R1, RZ", "IADD3 R1, R1, 0x1, RZ", "@P0 BRA 0x0",
+            "MOV R2, RZ", "IADD3 R2, R2, 0x1, RZ", "NOP",
+            "LOP3.LUT R2, R2, 0xff, RZ, 0xc0, !PT", "@P1 BRA 0x30", "EXIT"]
+    # loops 0..2 and 3..7; NOP neither issues nor counts
+    assert S.loop_min_instructions(_listing("_Z2kv", body), "_Z2k") == (4, 4)
+
+
+def test_unconditional_branches_are_followed_only():
+    body = ["MOV R1, RZ", "BRA 0x40", "IADD3 R1, R1, 0x1, RZ",
+            "IADD3 R1, R1, 0x2, RZ", "@P0 BRA 0x0", "EXIT"]
+    code = S.functions(_listing("_Z3kv", body))["_Z3kv"]
+    assert S.min_path(code, 0, 4) == 3
+    # a latch that no path reaches is an error, not a count
+    body[1] = "BRA 0x50"
+    code = S.functions(_listing("_Z3kv", body))["_Z3kv"]
+    with pytest.raises(ValueError, match="cannot be reached"):
+        S.min_path(code, 0, 4)
+
+
+@pytest.mark.parametrize("name", ["_Z9missing", "_Z"])
+def test_a_function_name_must_match_once(name):
+    text = _listing("_Z1kv", KERNEL) + _listing("_Z1gv", ["EXIT"])
+    with pytest.raises(ValueError, match="functions match"):
+        S.loop_min_instructions(text, name)
+
+
+def test_a_function_without_a_loop_is_refused():
+    with pytest.raises(ValueError, match="has no loop"):
+        S.loop_min_instructions(_listing("_Z1gv", ["MOV R1, RZ", "EXIT"]),
+                                "_Z1g")
