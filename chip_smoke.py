@@ -24,13 +24,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    the wave and on one of its shape whose lanes all read the same text;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
    through the same path;
-6. the probe kernels: KF (``csrc/hot_fetch.cu``, select on and off) and
-   KP (``csrc/micro_fused.cu``) at the TPU probes' default size
-   (B=16384, H=384, K=64) on the probes' seeded inputs plus
-   out-of-range lanes must equal their plain versions exactly; both
-   are timed in turns; then the three probe scripts
-   (``datok_tpu_torch.bench_micro``) run once each, and each must have
-   launched its kernel;
+6. the probe kernels: KF (``csrc/hot_fetch.cu``, prepared once, select
+   on and off) and KP (``csrc/micro_fused.cu``) in both forms (H=384:
+   the planes in shared memory; H=512: in L2) at the TPU probes'
+   default size (B=16384, K=64) on the probes' seeded inputs plus
+   out-of-range lanes must equal their plain versions exactly; each is
+   timed in turns (per call by CUDA events, device time by
+   ``torch.profiler``), KF beside a ``torch.take`` that gives the same
+   values; KP's shared-memory form also at B=200,000 (untimed), where
+   its threads loop over further lanes and refill their ring window;
+   then the three probe scripts (``datok_tpu_torch.bench_micro``) run
+   once each, and each must have launched its kernel (the fetch scripts
+   time their chains as CUDA-graph replays beside the eager chains, and
+   count the KF launches the replays ran from the graph's nodes);
 7. streaming at real size: a ~32 MB stream (about 2,000 documents of
    1-16 KB, each ending in ``\\x04\\n``, and 16 documents of 0.5-1.5 MB
    without EOT, which take the long path) through ``tokenize_stream``
@@ -79,7 +85,12 @@ times at its path's shape, its bound (the larger of its bytes over
 from this run's inputs) and the time of one PyTorch call computing the
 same function, where there is one; K1's entry adds its time with the
 ``"auto"`` hot set and that set's size, its time with one text on every
-lane and the cold shares.
+lane and the cold shares; KF's and KP's add their device time a call,
+KF's the per-step times of its driver's chain as graph replays and
+eager, the launches those replays ran (``graph_launches``, beside
+``launches``, the wrapper's own count) and, with the select on, the
+``torch.take`` time, and KP's its L2 form's numbers and the check of
+its persistent form.
 """
 
 import argparse
@@ -114,6 +125,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (the data sheet)
 # thread-instructions an SM issues a clock: 4 schedulers, one warp each
 ISSUE_PER_SM_CLOCK = 4 * 32
 PROBE_SHAPE = (16384, 384, 64)  # (B, H, K) defaults of the TPU probes
+PROBE_H_L2 = 512  # KP's planes too large for shared memory: its L2 form
+# lanes at which KP's 256-thread blocks loop over further lanes and hold
+# fewer than K of the steps' ring words at once
+PROBE_B_LOOP = 200_000
 N_SYMBOLS = 256  # rows of KF's planes
 # phase 7's stream: documents of 1-16 KB and long ones of 0.5-1.5 MB
 STREAM_DOCS = (2000, 1 << 10, 16 << 10)
@@ -434,15 +449,18 @@ def profile_wave(dtt, eng, texts, card, reps=3):
           f"({total:.3f} ms) [{card}]", flush=True)
 
 
-def probe_inputs(dev):
-    """KF's and KP's inputs at the probes' default size: the probes'
-    seeded planes, lanes and ring, with out-of-range values written
-    into some lanes (a = 0, negative, >= 256; h < 0, >= H)."""
+def probe_inputs(dev, H=None, B=None):
+    """KF's and KP's inputs at the probes' default size (``H`` rows a
+    plane, ``B`` lanes): the probes' seeded planes, lanes and ring, with
+    out-of-range values written into some lanes (a = 0, negative,
+    >= 256; h < 0, >= H)."""
     from datok_tpu_torch.bench_micro.planes import (fetch_inputs,
                                                     fetch_planes_from_numpy,
                                                     fused_inputs,
                                                     fused_planes_from_numpy)
-    B, H, _K = PROBE_SHAPE
+    B0, H0, _K = PROBE_SHAPE
+    H = H0 if H is None else H
+    B = B0 if B is None else B
     planes, a, h = fetch_inputs(B, H)
     rng = np.random.default_rng(SEED + 4)
     odd = rng.choice(B, B // 16, replace=False)
@@ -459,35 +477,71 @@ def probe_inputs(dev):
             (t(ring), fused_planes_from_numpy(planes_i8, dev), t(h0[None, :])))
 
 
-def device_us(fn, n=20):
+def device_us(fn, n=20, tries=3):
     """Device microseconds per call of ``fn`` (its kernels and copies),
-    from ``torch.profiler`` over ``n`` calls after a warm-up."""
+    from ``torch.profiler`` over ``n`` calls after a warm-up; a session
+    that recorded no device time (seen now and then) is run again, up to
+    ``tries`` sessions, and raises after that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / n
+        if us > 0:
+            return us
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
+                       "sessions")
 
 
 def exact_err(x, y):
     return max(int((p.long() - q.long()).abs().max()) for p, q in zip(x, y))
 
 
+def persistent_check(mf, dev, n_sm, card):
+    """KP's shared-memory form at ``PROBE_B_LOOP`` lanes, once, against
+    its plain version: more lanes than the persistent blocks hold, so
+    each thread walks further lanes, and 256-thread blocks whose ring
+    window holds fewer than K steps, so each lane refills it.  Raises
+    unless the plan is that form and KP equals the plain loop."""
+    B, H, K = PROBE_B_LOOP, PROBE_SHAPE[1], PROBE_SHAPE[2]
+    _, args = probe_inputs(dev, H, B)
+    p = mf.plan(H, B, K, n_sm)
+    if not (p.form == "smem" and p.ring_rows < K and p.grid * p.threads < B):
+        raise RuntimeError(f"KP's plan at H={H} B={B}: {p}, not a looping "
+                           "form with a refilled window")
+    err = exact_err(mf.micro_fused(*args, K), mf.micro_fused_plain(*args, K))
+    if err != 0:
+        raise RuntimeError(f"KP at B={B} differs from its plain version "
+                           f"(max abs err {err})")
+    print(f"probe micro_fused[persistent]: B={B} H={H} K={K}, {p}: "
+          f"{-(-B // (p.grid * p.threads))} lanes a thread, the window "
+          f"refilled every {p.ring_rows} steps; equal to its plain version "
+          f"(max abs err {err}) [{card}]", flush=True)
+    return {"H": H, "B": B, "K": K, "grid": p.grid, "threads": p.threads,
+            "ring_rows": p.ring_rows, "max_abs_err": err}
+
+
 def probe_phase(card, dev):
-    """Phase 6: KF (select on and off) and KP against their plain
-    versions on the same CUDA tensors, timed in turns; then the three
-    probe scripts once each, with the launch counts read around each.
-    Returns the kernels' entries of the final ``kernels`` line, each
-    with its bound from the bytes it must move (its operations, a few
-    integer operations a lane-step, bound it far lower) and, for KF
-    with the select off, the time of one ``torch.take`` that gives the
-    same values."""
+    """Phase 6: KF, prepared once (``HotFetch``), with the select on and
+    off, and KP in both forms (H=384: the planes in shared memory;
+    H=512: in L2) against their plain versions on the same CUDA tensors,
+    timed in turns, KF beside one ``torch.take`` that gives the same
+    values (with the select on from the prepared words at a precomputed
+    index); KP's shared-memory form once more, checked and untimed, at
+    ``PROBE_B_LOOP`` lanes; then the three probe scripts once each,
+    with the wrapper's launch counts read around each and the launches
+    their graph replays ran.  Returns the kernels' entries of the
+    final ``kernels`` line, each with its bound from the bytes it must
+    move (its operations, a few integer operations a lane-step, bound it
+    far lower) and, for KF with the select off, the time of that
+    ``torch.take``, the one call that computes the same function."""
     from datok_tpu_torch.bench_micro import (micro_ablate, micro_fused,
                                              micro_pallas)
     from datok_tpu_torch.kernels import hot_fetch as hf
@@ -495,33 +549,52 @@ def probe_phase(card, dev):
 
     B, H, K = PROBE_SHAPE
     fetch_args, fused_args = probe_inputs(dev)
-    a, _h, planes = fetch_args
-    ring, planes_i8, _h0 = fused_args
+    _, fused_l2 = probe_inputs(dev, PROBE_H_L2)
+    a, h, planes = fetch_args
+    n_sm = mf.sm_count(dev.index or 0)
+    for args, form in ((fused_args, "smem"), (fused_l2, "l2")):
+        p = mf.plan(args[1].shape[0] // 2, B, K, n_sm)
+        if p.form != form:
+            raise RuntimeError(f"KP's plan at H={args[1].shape[0] // 2}: {p}")
+        print(f"probe micro_fused: H={args[1].shape[0] // 2}: {p}", flush=True)
+    loop = persistent_check(mf, dev, n_sm, card)
     # bytes each function must move: its inputs read once, its outputs
     # written once; KF without the select reads column 0 of the planes
     fetch_bytes = 4 * B + 4 * B + planes.numel() + 4 * B
     fetch0_bytes = 4 * B + N_SYMBOLS + 4 * B
-    fused_bytes = (4 * B * min(K, ring.shape[0]) + planes_i8.numel() + 4 * B
-                   + 4 * K * B + 4 * B)
-    # KF without the select is planes[a, 0], 0 where a is outside 1..255:
-    # one torch.take of column 0 (its row 0 cleared) at the index with
-    # the outside lanes sent to row 0 gives the same values
-    col0 = planes[:, 0].to(torch.int32)
-    col0[0] = 0
-    idx = torch.where((a > 0) & (a < N_SYMBOLS), a, 0).long()
-    cases = [  # (name, kernel, plain, lane-steps per call, bytes, library)
-        ("hot_fetch[select]", lambda: hf.hot_fetch(*fetch_args, 3, True),
+
+    def fused_bytes(ring, planes_i8):
+        return (4 * B * min(K, ring.shape[0]) + planes_i8.numel() + 4 * B
+                + 4 * K * B + 4 * B)
+
+    fetch_on, fetch_off = hf.HotFetch(planes, 3, True), hf.HotFetch(planes, 3, False)
+    # the same values by one torch.take: with the select on, the
+    # prepared words (three planes' bytes, the fourth 0) at the lane's
+    # index; with it off, column 0 of the planes at the lane's symbol;
+    # lanes the masks drop sent to a 0 appended to each
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    words_on = torch.cat([fetch_on.words.reshape(-1), zero])
+    column0 = torch.cat([planes[:, 0].to(torch.int32), zero])
+    in_a = (a > 0) & (a < N_SYMBOLS)
+    idx_on = torch.where(in_a & (h >= 0) & (h < H), a * H + h,
+                         words_on.numel() - 1).long()
+    idx_off = torch.where(in_a, a, N_SYMBOLS).long()
+    cases = [  # (name, kernel, plain, lane-steps a call, bytes, take)
+        ("hot_fetch[select]", lambda: fetch_on(a, h),
          lambda: hf.hot_fetch_plain(*fetch_args, 3, True), B, fetch_bytes,
-         None),
-        ("hot_fetch[no_select]", lambda: hf.hot_fetch(*fetch_args, 3, False),
+         lambda: torch.take(words_on, idx_on)),
+        ("hot_fetch[no_select]", lambda: fetch_off(a, h),
          lambda: hf.hot_fetch_plain(*fetch_args, 3, False), B, fetch0_bytes,
-         lambda: torch.take(col0, idx)),
+         lambda: torch.take(column0, idx_off)),
         ("micro_fused", lambda: mf.micro_fused(*fused_args, K),
-         lambda: mf.micro_fused_plain(*fused_args, K), B * K, fused_bytes,
-         None),
+         lambda: mf.micro_fused_plain(*fused_args, K), B * K,
+         fused_bytes(*fused_args[:2]), None),
+        ("micro_fused[l2]", lambda: mf.micro_fused(*fused_l2, K),
+         lambda: mf.micro_fused_plain(*fused_l2, K), B * K,
+         fused_bytes(*fused_l2[:2]), None),
     ]
     res = {}
-    for name, kern, plain, lane_steps, n_bytes, library in cases:
+    for name, kern, plain, lane_steps, n_bytes, take in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -530,60 +603,97 @@ def probe_phase(card, dev):
         if err != 0:
             raise RuntimeError(f"{name} differs from its plain version "
                                f"(max abs err {err})")
-        # in turns: plain, kernel, kernel, plain
+        # in turns: plain, kernel, [take, take,] kernel, plain
         p1, _ = cuda_ms(plain, n=10, warmup=2)
         k1, _ = cuda_ms(kern, n=100, warmup=2)
+        t1 = t2 = t_dev = None
+        if take is not None:
+            if exact_err((take(),), got) != 0:
+                raise RuntimeError(f"{name}: torch.take differs")
+            t1, _ = cuda_ms(take, n=100, warmup=2)
+            t2, _ = cuda_ms(take, n=100, warmup=2)
         k2, _ = cuda_ms(kern, n=100, warmup=2)
         p2, _ = cuda_ms(plain, n=10, warmup=2)
         ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        lib_ms = None
-        if library is not None:
-            if exact_err((library(),), got) != 0:
-                raise RuntimeError(f"{name}: the library call differs")
-            lib_ms, _ = cuda_ms(library, n=100, warmup=2)
-        res[name] = (err, ms, p_ms, bound_ms(n_bytes), lib_ms)
-        print(f"probe {name}: bound {bound_ms(n_bytes):.6f} ms ({n_bytes} "
-              f"bytes at 3.35 TB/s); library call "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.take, mean of 100)'}"
-              f" [{card}]", flush=True)
         k_dev, p_dev = device_us(kern), device_us(plain)
-        print(f"probe {name}: B={B} H={H}{f' K={K}' if name == 'micro_fused' else ''}"
-              f", equal to its plain version (max abs err {err}); per call "
-              f"(CUDA events) kernel {k1:.4f} / {k2:.4f} ms (means of 100), "
-              f"plain {p1:.4f} / {p2:.4f} ms (means of 10); device time per "
-              f"call (torch.profiler) kernel {k_dev:.3f} us, plain {p_dev:.3f}"
-              f" us; ns_per_lane_step kernel {ms * 1e6 / lane_steps:.4f} "
-              f"(device {k_dev * 1e3 / lane_steps:.4f}), plain "
-              f"{p_ms * 1e6 / lane_steps:.4f} (device "
-              f"{p_dev * 1e3 / lane_steps:.4f}) [{card}]", flush=True)
+        if take is not None:
+            t_dev = device_us(take)
+        res[name] = {"err": err, "ms": ms, "plain_ms": p_ms,
+                     "bound_ms": bound_ms(n_bytes), "device_us": k_dev,
+                     "plain_device_us": p_dev}
+        line = (f"probe {name}: B={B} H={PROBE_H_L2 if name.endswith('[l2]') else H}"
+                f"{f' K={K}' if 'fused' in name else ''}, equal to its plain "
+                f"version (max abs err {err}); per call (CUDA events) "
+                f"kernel {k1:.4f} / {k2:.4f} ms (means of 100), plain "
+                f"{p1:.4f} / {p2:.4f} ms (means of 10)")
+        if take is not None:
+            res[name].update(take_ms=(t1 + t2) / 2, take_device_us=t_dev)
+            line += (f", torch.take {t1:.4f} / {t2:.4f} ms (means of 100, "
+                     f"between the kernel's turns; kernel / take "
+                     f"{ms / ((t1 + t2) / 2):.3f})")
+        print(line + f"; device time a call (torch.profiler) kernel "
+              f"{k_dev:.3f} us, plain {p_dev:.3f} us"
+              + ("" if t_dev is None else f", torch.take {t_dev:.3f} us")
+              + f"; bound {bound_ms(n_bytes) * 1e3:.4f} us ({n_bytes} bytes "
+              f"at 3.35 TB/s; device time / bound "
+              f"{k_dev / (bound_ms(n_bytes) * 1e3):.2f}); ns_per_lane_step "
+              f"kernel {ms * 1e6 / lane_steps:.4f} (device "
+              f"{k_dev * 1e3 / lane_steps:.4f}) [{card}]", flush=True)
 
-    # the probe scripts, each with its kernel's count read around it
-    launches = {}
+    # the probe scripts, each with its kernel's count read around it and
+    # the launches its graph replays ran
+    launches, replayed, steps = {}, {}, {}
     for mod, counter in ((micro_pallas, hf.hot_fetch), (micro_fused, mf.micro_fused),
                          (micro_ablate, hf.hot_fetch)):
         name = mod.__name__.rsplit(".", 1)[1]
         counter.launches = 0
         t0 = time.perf_counter()
-        mod.main()
+        rows = mod.main()
         launches[name] = counter.launches
         if counter.launches < 1:
             raise RuntimeError(f"{name}.main() launched no kernel")
-        print(f"probe script {name}: {counter.launches} launches, "
-              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        replayed[name] = sum(r.get("graph_launches", 0) for r in rows)
+        steps[name] = {r["variant"]: r for r in rows}
+        graph = ", ".join(
+            f"{r['variant']} {r['us_per_step']:.3f} us a step as graph "
+            f"replays / {r['eager_us_per_step']:.3f} eager"
+            for r in rows if "eager_us_per_step" in r)
+        print(f"probe script {name}: {counter.launches} launches by the "
+              f"wrapper, {replayed[name]} more in graph replays, "
+              f"{time.perf_counter() - t0:.2f} s{'; ' + graph if graph else ''}"
+              f" [{card}]", flush=True)
+
+    def driver(script, variant):
+        r = steps[script][variant]
+        return {"graph_us_per_step": r["us_per_step"],
+                "eager_us_per_step": r["eager_us_per_step"],
+                "graph_launches": replayed[script]}
 
     src = "datok_tpu_torch/csrc/"
+    l2 = res["micro_fused[l2]"]
     rows = [("hot_fetch[select]", "hot_fetch.cu",
-             "bench_micro/micro_pallas.py:58", launches["micro_pallas"]),
+             "bench_micro/micro_pallas.py:58", launches["micro_pallas"],
+             {**driver("micro_pallas", "cuda_3p"),
+              "take_ms": res["hot_fetch[select]"]["take_ms"]}, None),
             ("micro_fused", "micro_fused.cu", "bench_micro/micro_fused.py:87",
-             launches["micro_fused"]),
+             launches["micro_fused"],
+             {"l2_form": {"H": PROBE_H_L2, "max_abs_err": l2["err"],
+                          "ms": l2["ms"], "plain_ms": l2["plain_ms"],
+                          "device_us": l2["device_us"],
+                          "bound_ms": l2["bound_ms"]},
+              "persistent_form": loop}, None),
             ("hot_fetch[no_select]", "hot_fetch.cu",
-             "bench_micro/micro_ablate.py:133", launches["micro_ablate"])]
+             "bench_micro/micro_ablate.py:133", launches["micro_ablate"],
+             driver("micro_ablate", "cuda_matmul_only"),
+             res["hot_fetch[no_select]"]["take_ms"])]
     return [{"name": name, "route": "cuda", "source": src + source,
              "replaces": replaces, "launches": n,
-             "max_abs_err": res[name][0], "ms": res[name][1],
-             "plain_ms": res[name][2], "bound_ms": res[name][3],
-             "bound_by": "bytes", "library_ms": res[name][4]}
-            for name, source, replaces, n in rows]
+             "max_abs_err": res[name]["err"], "ms": res[name]["ms"],
+             "plain_ms": res[name]["plain_ms"],
+             "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": library, "device_us": res[name]["device_us"],
+             **extra}
+            for name, source, replaces, n, extra, library in rows]
 
 
 def native_oracle(dtt, eng, text):

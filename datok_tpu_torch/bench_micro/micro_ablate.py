@@ -7,13 +7,19 @@ the kernel against the full one-hot fetch, then the same chained loop
 (``h' = (entry >> 5) % H``) timed for each variant.  The one-hot
 variants (``noop``, ``onehot_only``, ``matmul_only``, ``select_only``,
 ``full_xla``) were XLA on the TPU and are plain torch functions here;
-the Pallas variants are KF with the select on (``cuda_full``) and off
-(``cuda_matmul_only``).  Each step of a loop is one launch.
+the Pallas variants are KF, prepared once (``HotFetch``), with the
+select on (``cuda_full``) and off (``cuda_matmul_only``).  As the TPU
+ran each loop as one jitted ``fori_loop``, each variant's loop is
+captured in one CUDA graph and its replays are timed (``us_per_step``,
+``ns_per_lane_step``), beside the loop launched step by step from
+Python (``eager_us_per_step``); KF's rows also count the KF launches
+their replays ran (``graph_launches``: the replays times the graph's KF
+nodes).
 
     python -m datok_tpu_torch.bench_micro.micro_ablate
 
 Prints one JSON line per result, each timing with the card's name and
-power limit; needs a GPU.
+power limit, and returns the timings; needs a GPU.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import os
 import numpy as np
 import torch
 
-from ..kernels.hot_fetch import hot_fetch
-from .planes import (N_SYMBOLS, card, cuda_ms, fetch_inputs,
+from ..kernels.hot_fetch import KERNEL_NAME, HotFetch
+from .planes import (N_SYMBOLS, card, chain_times, fetch_inputs,
                      fetch_planes_from_numpy, require_cuda)
 
 REPS = 5
@@ -97,8 +103,8 @@ def variants(planes_f32: np.ndarray, H: int, device):
         "matmul_only": fetch_matmul_only,
         "select_only": fetch_select_only,
         "full_xla": fetch_full,
-        "cuda_full": lambda a, h: hot_fetch(a, h, planes_u8, 3, True),
-        "cuda_matmul_only": lambda a, h: hot_fetch(a, h, planes_u8, 3, False),
+        "cuda_full": HotFetch(planes_u8, 3, True),
+        "cuda_matmul_only": HotFetch(planes_u8, 3, False),
     }
 
 
@@ -122,13 +128,20 @@ def main():
     rng = np.random.default_rng(1)
     a0 = torch.from_numpy(rng.integers(1, 200, B).astype(np.int32)).to(dev)
     h0 = torch.from_numpy(rng.integers(0, H, B).astype(np.int32)).to(dev)
+    results = []
     for tag, fn in fetch.items():
-        ms, _ = cuda_ms(lambda: chain(fn, a0, h0, steps, H), REPS)
-        print(json.dumps({
+        kernel = KERNEL_NAME if isinstance(fn, HotFetch) else ""
+        eager, graph, _, replayed = chain_times(
+            lambda: chain(fn, a0, h0, steps, H), REPS, kernel)
+        results.append({
             "variant": tag, "B": B,
-            "ns_per_lane_step": ms * 1e6 / (B * steps),
-            "us_per_step": ms * 1e3 / steps, "card": card_line,
-        }), flush=True)
+            "ns_per_lane_step": graph * 1e6 / (B * steps),
+            "us_per_step": graph * 1e3 / steps,
+            "eager_us_per_step": eager * 1e3 / steps,
+            "graph_launches": replayed, "card": card_line,
+        })
+        print(json.dumps(results[-1]), flush=True)
+    return results
 
 
 if __name__ == "__main__":

@@ -5,13 +5,16 @@ and defaults (``MB_B`` 16384, ``MB_H`` 384, ``MB_BL`` 1024, kept for
 the record, ``MB_K`` 64), the same seeded table, ring and start states,
 the same exactness check of ``ys`` and ``h`` first (KP against the
 plain torch loop, which follows the Pallas kernel), then the timing of
-both.  ``MB_INTERPRET`` has no counterpart: the plain version is the
+both, a single call each.  KP runs in the form that
+``kernels/micro_fused.py:plan`` picks (the planes in shared memory at
+the default H=384, in L2 where they and one ring-window row do not
+fit).  ``MB_INTERPRET`` has no counterpart: the plain version is the
 CPU form.
 
     python -m datok_tpu_torch.bench_micro.micro_fused
 
 Prints one JSON line per result, each timing with the card's name and
-power limit; needs a GPU.
+power limit, and returns the timings; needs a GPU.
 """
 
 from __future__ import annotations
@@ -55,14 +58,17 @@ def main():
     if not (ok_ys and ok_h):
         raise RuntimeError("KP differs from the plain loop")
 
+    results = []
     for tag, fn, reps in (("torch", micro_fused_plain, 1),
                           ("cuda", micro_fused, REPS)):
         ms, _ = cuda_ms(lambda: fn(ring, planes, h0, K), reps)
-        print(json.dumps({
+        results.append({
             "variant": tag, "B": B, "H": cfg["H"], "BL": cfg["BL"], "K": K,
             "ns_per_lane_step": ms * 1e6 / (B * K),
             "us_per_step": ms * 1e3 / K, "ms_per_call": ms, "card": card_line,
-        }), flush=True)
+        })
+        print(json.dumps(results[-1]), flush=True)
+    return results
 
 
 if __name__ == "__main__":

@@ -4,14 +4,18 @@ The JAX probes (``bench_micro/micro_pallas.py``, ``micro_fused.py``,
 ``micro_ablate.py``) draw their planes and inputs from
 ``np.random.default_rng(0)``; :func:`fetch_inputs` and
 :func:`fused_inputs` make the same arrays in the same order, so both
-sides see the same bytes.  Also the card's name and power limit and a
-CUDA-event timer, which the port's probe scripts print beside every
-number.
+sides see the same bytes.  Also the card's name and power limit, a
+CUDA-event timer and a CUDA-graph capture, which the port's probe
+scripts use for every number they print.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import subprocess
+import tempfile
+import warnings
 
 import numpy as np
 import torch
@@ -79,6 +83,77 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("the probes time CUDA kernels: no GPU")
     return torch.device("cuda")
+
+
+def graph_replay(fn):
+    """``fn()`` captured in one CUDA graph, the counterpart of the TPU
+    probes' jitted ``fori_loop``; returns ``(replay, out)``: ``replay()``
+    runs the captured launches again and returns ``out``, the captured
+    result tensors, which each replay rewrites; ``replay.count`` counts
+    the replays and ``replay.graph`` is the graph, kept for
+    :func:`graph_kernels`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up before the capture, on a side stream (it runs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+
+    def replay():
+        graph.replay()
+        replay.count += 1
+        return out
+
+    replay.count, replay.graph = 0, graph
+    return replay, out
+
+
+def graph_kernels(graph, name: str) -> int:
+    """How many kernel nodes of ``graph`` (a captured
+    ``torch.cuda.CUDAGraph`` that kept its graph) run a function whose
+    name holds ``name``: each replay launches each of them once.  Read
+    from the graph's own description, which CUDA writes as a DOT file
+    (``cudaGraphDebugDotPrint``) naming each kernel node's function."""
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it runs
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    kernels = re.findall(r"\{KERNEL\s*\|\s*\{ID \|[^|]*\| ([^<\\}]+)", dot)
+    if not kernels:
+        raise RuntimeError("the graph's description names no kernel node")
+    return sum(name in k for k in kernels)
+
+
+def chain_times(run, reps: int, kernel: str = ""):
+    """Mean milliseconds of one chain ``run()``, eager (one launch a
+    step from Python) and as a CUDA-graph replay, each over ``reps``
+    runs; raises unless every replay's output equals the eager one.
+    With ``kernel`` (a CUDA kernel's name), also the launches of that
+    kernel the replays ran: the replays times the graph's nodes of that
+    kernel (:func:`graph_kernels`), of which it must have at least one.
+    Returns (eager ms, graph ms, eager output, replayed launches)."""
+    eager_ms, want = cuda_ms(run, reps)
+    replay, _ = graph_replay(run)
+    for _ in range(reps):
+        if not torch.equal(replay(), want):
+            raise RuntimeError("a graph replay of the chain differs from "
+                               "the eager chain")
+    graph_ms, got = cuda_ms(replay, reps)
+    if not torch.equal(got, want):
+        raise RuntimeError("a graph replay of the chain differs from the "
+                           "eager chain")
+    launches = 0
+    if kernel:
+        per_replay = graph_kernels(replay.graph, kernel)
+        if per_replay < 1:
+            raise RuntimeError(f"the chain's graph holds no {kernel}")
+        launches = replay.count * per_replay
+    return eager_ms, graph_ms, want, launches
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1):

@@ -66,7 +66,7 @@ def _src(*names: str) -> Tuple[str, ...]:
 _TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _p,
                    _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _p, _p,
                    _i32, _p, _p, _p, _p, _p, _p, _p)
-# a, h, planes, H, n_planes, select, B, out
+# a, h, table, W, n_planes, select, B, out
 _HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)
 # ring, R, B, planes, H, K, h0, ys, h_out
 _MICRO_FUSED_ARGS = (_p, _i32, _i32, _p, _i32, _i32, _p, _p, _p)
@@ -76,16 +76,20 @@ TRANSDUCE = Lib("transduce", _src("transduce.cu", "transduce_step.cuh"),
 TRANSDUCE_HOST = Lib(
     "transduce_host", _src("transduce_host.cpp", "transduce_step.cuh"),
     (("dt_transduce_host", _TRANSDUCE_ARGS),), False)
+# a, h, out, B, table, stream
 HOT_FETCH = Lib("hot_fetch", _src("hot_fetch.cu", "hot_fetch_lane.cuh"),
-                (("dt_hot_fetch_launch", _HOT_FETCH_ARGS + (_p,)),), True)
+                (("dt_hot_fetch_launch", (_p, _p, _p, _i32, _p, _p)),), True)
+# + grid, threads, smem, ring_rows, device, stream
 MICRO_FUSED = Lib(
     "micro_fused", _src("micro_fused.cu", "micro_fused_lane.cuh"),
-    (("dt_micro_fused_launch", _MICRO_FUSED_ARGS + (_p,)),), True)
+    (("dt_micro_fused_launch", _MICRO_FUSED_ARGS + (_i32,) * 5 + (_p,)),),
+    True)
 MICRO_HOST = Lib(
     "micro_host",
     _src("micro_host.cpp", "hot_fetch_lane.cuh", "micro_fused_lane.cuh"),
     (("dt_hot_fetch_host", _HOT_FETCH_ARGS),
-     ("dt_micro_fused_host", _MICRO_FUSED_ARGS)), False)
+     ("dt_micro_fused_host", _MICRO_FUSED_ARGS),
+     ("dt_micro_fused_staged_host", _MICRO_FUSED_ARGS + (_i32,))), False)
 
 CUDA_LIBS = (TRANSDUCE, HOT_FETCH, MICRO_FUSED)
 

@@ -3,13 +3,18 @@
 KP is the counterpart of the TPU probe kernel of
 ``bench_micro/micro_fused.py`` (see ``micro_fused_lane.cuh`` for the
 walk).  Tensors on the CPU go to :func:`micro_fused_plain`; tensors on
-a CUDA device go to KP, and anything KP does not take raises.
-``micro_fused.launches`` counts KP launches.
+a CUDA device go to KP, and anything KP does not take raises.  KP has
+two forms, and :func:`plan` picks one by a size rule: the planes in
+each block's shared memory where the planes (2H x 256 bytes), at least
+one row of the block's ring window (4 bytes a thread) and its mbarrier
+fit one block's 232,448 bytes, else in L2.
+``micro_fused.launches`` counts KP launches (either form).
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -17,6 +22,44 @@ from . import build
 
 N_SYMBOLS = 256  # columns of the planes (the probe's A_pad)
 HOT_MASK = (1 << 11) - 1
+SMEM_LIMIT = 232_448  # one block's shared memory on Hopper (227 KB)
+BAR_BYTES = 16  # the block's mbarrier, after the planes and the window
+# threads a block of the shared-memory form, at most: more lanes an SM
+# loop, so that the ring window keeps rows beside the planes
+SMEM_THREADS = 256
+L2_THREADS = 256
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A launch of KP: its form ("smem" or "l2"), grid, threads a
+    block, bytes of dynamic shared memory, and rows of the ring window
+    (steps whose ring words a lane holds at once)."""
+
+    form: str
+    grid: int
+    threads: int
+    smem: int
+    ring_rows: int
+
+
+def plan(H: int, B: int, K: int, n_sm: int) -> Plan:
+    """KP's launch for ``H`` rows a plane, ``B`` lanes and ``K`` steps
+    on a card of ``n_sm`` SMs.  The shared-memory form: one persistent
+    block an SM (the planes leave room for no second), ceil(B / n_sm)
+    lanes a block rounded up to a warp, at most 256 (a thread then loops
+    over further lanes), and a ring window of as many of the K steps as
+    the rest of the block's shared memory holds; where not even one row
+    fits, the L2 form, one lane a thread in 256-thread blocks."""
+    per_block = -(-B // n_sm)
+    threads = max(32, min(-(-per_block // 32) * 32, SMEM_THREADS))
+    planes = 2 * H * N_SYMBOLS
+    rows = min(K, max(0, SMEM_LIMIT - BAR_BYTES - planes) // (4 * threads))
+    if rows < 1:
+        return Plan("l2", max(1, -(-B // L2_THREADS)), L2_THREADS, 0, 0)
+    grid = min(n_sm, max(1, -(-B // threads)))
+    return Plan("smem", grid, threads, planes + 4 * rows * threads + BAR_BYTES,
+                rows)
 
 
 def _check(ring, planes, h0, K):
@@ -68,12 +111,31 @@ def micro_fused_plain(ring: torch.Tensor, planes: torch.Tensor,
     return ys, h[None, :].clone()
 
 
-def _launch(lib_fn, ring, planes, h0, K, ys, h_out, *extra):
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(ring: torch.Tensor, planes: torch.Tensor, h0: torch.Tensor,
+           K: int, p: Plan):
+    """KP on the card in the form and shape ``p`` (from :func:`plan`)
+    for inputs that :func:`micro_fused` has checked."""
     R, B = ring.shape
-    rc = lib_fn(ring.data_ptr(), R, B, planes.data_ptr(), planes.shape[0] // 2,
-                K, h0.data_ptr(), ys.data_ptr(), h_out.data_ptr(), *extra)
+    if p.smem and planes.data_ptr() % 16:
+        raise ValueError("the planes' bulk copy needs 16-byte aligned planes")
+    dev = ring.device
+    ys = torch.empty((K, B), dtype=torch.int32, device=dev)
+    h_out = torch.empty((1, B), dtype=torch.int32, device=dev)
+    rc = build.load(build.MICRO_FUSED).dt_micro_fused_launch(
+        ring.data_ptr(), R, B, planes.data_ptr(), planes.shape[0] // 2, K,
+        h0.data_ptr(), ys.data_ptr(), h_out.data_ptr(), p.grid, p.threads,
+        p.smem, p.ring_rows, dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"KP returned {rc}")
+        raise RuntimeError(f"KP launch failed ({p}): CUDA error {rc}")
+    micro_fused.launches += 1
+    return ys, h_out
 
 
 def micro_fused(ring: torch.Tensor, planes: torch.Tensor, h0: torch.Tensor,
@@ -86,28 +148,37 @@ def micro_fused(ring: torch.Tensor, planes: torch.Tensor, h0: torch.Tensor,
         return micro_fused_plain(ring, planes, h0, K)
     if dev.type != "cuda":
         raise ValueError(f"KP runs on CUDA devices, not {dev}")
-    lib = build.load(build.MICRO_FUSED)
-    ys = torch.empty((K, B), dtype=torch.int32, device=dev)
-    h_out = torch.empty((1, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.dt_micro_fused_launch, ring, planes, h0, K, ys, h_out,
-                ctypes.c_void_p(stream))
-    micro_fused.launches += 1
-    return ys, h_out
+    return launch(ring, planes, h0, K, plan(H, B, K, sm_count(dev.index)))
 
 
 micro_fused.launches = 0
 
 
-def micro_fused_host(ring: torch.Tensor, planes: torch.Tensor,
-                     h0: torch.Tensor, K: int):
-    """KP's lane body compiled for the host with g++ (tests only)."""
+def _host(entry, ring, planes, h0, K, *extra):
     R, B, H = _check(ring, planes, h0, K)
     if ring.device.type != "cpu":
         raise ValueError("the host build takes CPU tensors")
     ys = torch.empty((K, B), dtype=torch.int32)
     h_out = torch.empty((1, B), dtype=torch.int32)
-    _launch(build.load(build.MICRO_HOST).dt_micro_fused_host, ring, planes,
-            h0, K, ys, h_out)
+    rc = getattr(build.load(build.MICRO_HOST), entry)(
+        ring.data_ptr(), R, B, planes.data_ptr(), H, K, h0.data_ptr(),
+        ys.data_ptr(), h_out.data_ptr(), *extra)
+    if rc != 0:
+        raise ValueError(f"{entry} does not take H={H}")
     return ys, h_out
+
+
+def micro_fused_host(ring: torch.Tensor, planes: torch.Tensor,
+                     h0: torch.Tensor, K: int):
+    """KP's L2-form lane body compiled for the host with g++ (tests
+    only)."""
+    return _host("dt_micro_fused_host", ring, planes, h0, K)
+
+
+def micro_fused_staged_host(ring: torch.Tensor, planes: torch.Tensor,
+                            h0: torch.Tensor, K: int, ring_rows: int = 16):
+    """KP's shared-memory-form lane body compiled for the host with g++,
+    on a staged copy of the planes and a ring window of ``ring_rows``
+    rows (tests only)."""
+    return _host("dt_micro_fused_staged_host", ring, planes, h0, K,
+                 ring_rows)

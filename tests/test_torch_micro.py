@@ -1,17 +1,23 @@
 """KF and KP, the port's probe kernels, against the TPU probes.
 
-* KF's plain version (the wrapper with CPU tensors) and its g++ host
-  build against ``bench_micro/micro_pallas.py:make_xla_fetch`` (the twin
+* KF's plain version (the wrapper with CPU tensors), its prepared form
+  (``HotFetch``: the lane's work on the interleaved table in torch, and
+  the g++ host build of the lane) and the one-shot host build against
+  ``bench_micro/micro_pallas.py:make_xla_fetch`` (the twin
   its own exactness check uses; its Pallas kernel has no interpret
   switch) and ``bench_micro/micro_ablate.py:fetch_full`` with the
   select on, and ``fetch_matmul_only(a, h) ^ h`` with it off, on inputs
   that include ``a = 0``, ``a >= 256``, negative values and ``h``
-  outside ``[0, H)``; also the chained loops of both scripts.
+  outside ``[0, H)``; also the chained loops of both scripts, and one
+  and two planes against the low bytes of the three-plane fetch.
 * The port's torch ablation variants against the JAX ones.
-* KP's plain version and host build against the Pallas kernel of
+* KP's plain version and the host builds of both forms' lane bodies
+  (the L2 form's, and the shared-memory form's on a staged copy of the
+  planes with the ring loaded ahead) against the Pallas kernel of
   ``bench_micro/micro_fused.py`` in interpret mode, on the module's own
   ring and on one with zeros, values >= 256, negatives and start states
-  out of range written in.
+  out of range written in; KP's size rule (``plan``) on both sides of
+  the shared-memory limit.
 * The wrappers' input checks, and both kernels against their plain
   versions on a card (skipped without one).
 
@@ -36,10 +42,14 @@ from datok_tpu_torch.bench_micro.planes import (fetch_inputs,
                                                 fused_inputs,
                                                 fused_planes_from_numpy,
                                                 require_cuda)
-from datok_tpu_torch.kernels.hot_fetch import (hot_fetch, hot_fetch_host,
+from datok_tpu_torch.kernels.hot_fetch import (HotFetch, hot_fetch,
+                                               hot_fetch_host,
                                                hot_fetch_plain)
-from datok_tpu_torch.kernels.micro_fused import (micro_fused, micro_fused_host,
-                                                 micro_fused_plain)
+from datok_tpu_torch.kernels.micro_fused import (SMEM_LIMIT, Plan,
+                                                 micro_fused,
+                                                 micro_fused_host,
+                                                 micro_fused_plain,
+                                                 micro_fused_staged_host, plan)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, BL, K = 256, 128, 128, 8
@@ -81,12 +91,21 @@ def fetch_case():
     return planes, a, h
 
 
-FETCHERS = {"wrapper_cpu": hot_fetch, "host_build": hot_fetch_host}
+def _prepared(a, h, planes, n_planes, select):
+    return HotFetch(planes, n_planes, select)(a, h)
 
 
-def _port_fetch(fn, planes, a, h, select=True):
+def _prepared_host(a, h, planes, n_planes, select):
+    return HotFetch(planes, n_planes, select).host(a, h)
+
+
+FETCHERS = {"wrapper_cpu": hot_fetch, "host_build": hot_fetch_host,
+            "prepared": _prepared, "prepared_host": _prepared_host}
+
+
+def _port_fetch(fn, planes, a, h, select=True, n_planes=3):
     out = fn(torch.from_numpy(a), torch.from_numpy(h),
-             fetch_planes_from_numpy(planes), 3, select)
+             fetch_planes_from_numpy(planes), n_planes, select)
     return out.numpy()
 
 
@@ -120,6 +139,53 @@ def test_kf_no_select_matches_jax(probes, fetch_case, fn):
     want = probes["micro_ablate"].fetch_matmul_only(ja, jh) ^ jh
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got[2] == planes[255, 0] and got[5] == planes[1, 0]
+
+
+@pytest.mark.parametrize("fn", FETCHERS.values(), ids=FETCHERS.keys())
+@pytest.mark.parametrize("n_planes", [1, 2])
+def test_kf_n_planes_match_jax(probes, fetch_case, n_planes, fn):
+    # micro_ablate.make_pallas(n_planes) multiplies the first n_planes*H
+    # columns: its entry is the low 8*n_planes bits of the full fetch's
+    planes, a, h = fetch_case
+    sub = np.ascontiguousarray(planes[:, :n_planes * H])
+    ja, jh = jnp.asarray(a), jnp.asarray(h)
+    full = np.asarray(probes["micro_ablate"].fetch_full(ja, jh))
+    got = _port_fetch(fn, sub, a, h, True, n_planes)
+    np.testing.assert_array_equal(got, full & ((1 << (8 * n_planes)) - 1))
+    got0 = _port_fetch(fn, sub, a, h, False, n_planes)
+    want0 = probes["micro_ablate"].fetch_matmul_only(ja, jh) ^ jh
+    np.testing.assert_array_equal(got0, np.asarray(want0))
+
+
+def test_kf_prepared_words():
+    planes = torch.arange(256 * 6, dtype=torch.int32).reshape(256, 6)
+    planes = (planes % 251).to(torch.uint8)
+    f = HotFetch(planes, 3, True)
+    assert tuple(f.table.shape) == (256, 2, 4) and f.table.dtype == torch.uint8
+    assert tuple(f.words.shape) == (256, 2) and f.words.dtype == torch.int32
+    p = planes.to(torch.int32)
+    assert f.table[7, 1].tolist() == [int(p[7, 1]), int(p[7, 3]), int(p[7, 5]), 0]
+    assert int(f.words[7, 1]) == int(p[7, 1] | p[7, 3] << 8 | p[7, 5] << 16)
+    f0 = HotFetch(planes, 3, False)
+    assert tuple(f0.table.shape) == (256, 1, 4)
+    assert torch.equal(f0.table[:, 0, :3], planes[:, 0::2])
+    # the lane joins only its n_planes bytes and masks a = 0 itself:
+    # bytes written above them, and into row 0, change nothing
+    f2 = HotFetch(planes[:, :4].contiguous(), 2, True)
+    a = torch.tensor([0, 7, 7, 255], dtype=torch.int32)
+    h = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    want = f2.host(a, h)
+    assert [int(x) for x in want] == [0, int(p[7, 0] | p[7, 2] << 8),
+                                      int(p[7, 1] | p[7, 3] << 8),
+                                      int(p[255, 1] | p[255, 3] << 8)]
+    f2.table[:, :, 2:] = 0xAB
+    f2.table[0] = 0x5C
+    assert torch.equal(f2.host(a, h), want) and torch.equal(f2.plain(a, h), want)
+    with pytest.raises(ValueError):  # lanes on another device
+        f(torch.zeros(4, dtype=torch.int32, device="meta"),
+          torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(TypeError):
+        f(torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int64))
 
 
 def _jax_chain(fetch, a, h, steps, update_h):
@@ -202,7 +268,8 @@ def fused_cases(probes):
     return out
 
 
-KP_FNS = {"wrapper_cpu": micro_fused, "host_build": micro_fused_host}
+KP_FNS = {"wrapper_cpu": micro_fused, "host_build": micro_fused_host,
+          "staged_host": micro_fused_staged_host}
 
 
 @pytest.mark.parametrize("fn", KP_FNS.values(), ids=KP_FNS.keys())
@@ -222,6 +289,50 @@ def test_kp_matches_pallas_interpret(probes, fused_cases, case, fn):
         ys_np, h_np = probes["micro_fused"].numpy_replay()
         np.testing.assert_array_equal(ys.numpy(), ys_np)
         np.testing.assert_array_equal(hout.numpy()[0], h_np)
+
+
+@pytest.mark.parametrize("R,K", [(1, 1), (3, 17), (5, 37), (128, 64)])
+def test_kp_staged_lane_wraps_ring(R, K):
+    # the ring window refilled every W steps, the ring wrapping at R rows
+    rng = np.random.default_rng(13)
+    Hs, Bs = 40, 33
+    ring = torch.from_numpy(rng.integers(-3, 300, (R, Bs)).astype(np.int32))
+    planes = torch.from_numpy(rng.integers(-128, 128, (2 * Hs, 256)).astype(np.int8))
+    h0 = torch.from_numpy(rng.integers(-2, Hs + 2, (1, Bs)).astype(np.int32))
+    want = micro_fused_plain(ring, planes, h0, K)
+    got = micro_fused_host(ring, planes, h0, K)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for rows in (1, 3, 16, 64):
+        got = micro_fused_staged_host(ring, planes, h0, K, rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("B", [1, 16384, 200000])
+@pytest.mark.parametrize("H", [384, 453, 454, 455, 512, 2047])
+def test_kp_plan_size_rule(H, B):
+    n_sm, K = 132, 64
+    p = plan(H, B, K, n_sm)
+    assert p.smem <= SMEM_LIMIT
+    if H >= 454:  # the planes alone leave no room
+        assert p == Plan("l2", -(-B // 256), 256, 0, 0)
+        return
+    lanes = -(-B // n_sm)
+    threads = min(max(32, -(-lanes // 32) * 32), 256)
+    room = SMEM_LIMIT - 16 - 2 * H * 256
+    if room < 4 * threads:  # not one row of the ring window
+        assert H == 453 and B > 1 and p.form == "l2"
+        return
+    assert p.form == "smem" and p.threads == threads
+    assert p.ring_rows == min(K, room // (4 * threads))
+    assert p.smem == 2 * H * 256 + 4 * p.ring_rows * p.threads + 16
+    assert 1 <= p.grid <= n_sm
+    # every lane has a thread, or every SM a block of 256 that loops
+    assert p.grid * p.threads >= B or (p.threads == 256 and p.grid == n_sm)
+    assert (p.grid - 1) * p.threads < B  # no block without lanes
+    if (H, B) == (384, 16384):
+        assert (p.grid, p.threads, p.ring_rows) == (128, 128, 64)
+    if (H, B) == (384, 200000):  # threads loop, and refill their window
+        assert (p.grid, p.threads, p.ring_rows) == (132, 256, 34)
 
 
 def test_planes_from_numpy_reject_bad_values():
@@ -306,19 +417,33 @@ def test_kernels_match_plain_on_card(fetch_case):
     tp = fetch_planes_from_numpy(planes, dev)
     ta, th = torch.from_numpy(a).to(dev), torch.from_numpy(h).to(dev)
     for select in (True, False):
-        before = hot_fetch.launches
-        got = hot_fetch(ta, th, tp, 3, select)
+        want = hot_fetch_plain(ta, th, tp, 3, select)
+        prepared = HotFetch(tp, 3, select)
+        for fetch in (lambda: hot_fetch(ta, th, tp, 3, select),
+                      lambda: prepared(ta, th)):
+            before = hot_fetch.launches
+            got = fetch()
+            torch.cuda.synchronize()
+            assert hot_fetch.launches == before + 1
+            assert torch.equal(got, want)
+    # both of KP's forms: the planes in shared memory (H=128) and in L2;
+    # then the shared-memory form where each thread walks further lanes
+    # and refills its ring window (H=384, 200,000 lanes, 64 steps)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Hk, Bk, Kk in ((H, B, K), (512, B, K), (384, 200000, 64)):
+        _table, planes_i8, ring, h0 = fused_inputs(Bk, Hk)
+        ring[0, :4] = [0, 256, -1, 255]
+        h0[:2] = [-1, Hk]
+        args = (torch.from_numpy(ring).to(dev),
+                fused_planes_from_numpy(planes_i8, dev),
+                torch.from_numpy(h0[None, :]).to(dev), Kk)
+        p = plan(Hk, Bk, Kk, n_sm)
+        assert p.form == ("l2" if Hk == 512 else "smem")
+        if Bk == 200000:
+            assert p.ring_rows < Kk and p.grid * p.threads < Bk
+        before = micro_fused.launches
+        ys, hout = micro_fused(*args)
         torch.cuda.synchronize()
-        assert hot_fetch.launches == before + 1
-        assert torch.equal(got, hot_fetch_plain(ta, th, tp, 3, select))
-    _table, planes_i8, ring, h0 = fused_inputs(B, H)
-    ring[0, :4] = [0, 256, -1, 255]
-    args = (torch.from_numpy(ring).to(dev),
-            fused_planes_from_numpy(planes_i8, dev),
-            torch.from_numpy(h0[None, :]).to(dev), K)
-    before = micro_fused.launches
-    ys, hout = micro_fused(*args)
-    torch.cuda.synchronize()
-    assert micro_fused.launches == before + 1
-    ys_p, h_p = micro_fused_plain(*args)
-    assert torch.equal(ys, ys_p) and torch.equal(hout, h_p)
+        assert micro_fused.launches == before + 1
+        ys_p, h_p = micro_fused_plain(*args)
+        assert torch.equal(ys, ys_p) and torch.equal(hout, h_p)
