@@ -59,7 +59,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    output byte-equal to the native oracle; a second run must skip all
    64 files and launch K1 zero times; and ``python -m
    datok_tpu_torch.cli tokenize --batch --device cuda`` on one file in a
-   subprocess must print the oracle's bytes.
+   subprocess must print the oracle's bytes;
+10. the sharded engine (``parallel/mesh.py``) over every card, or over
+   ``cuda:0`` twice when there is one (then it measures the sharded
+   launch path, not scaling): (a) phase 4's wave through
+   ``ShardedEngine.events_batch``, every lane equal to phase 4's, one K1
+   launch a shard, ``corpus_stats`` equal to the counters of the single
+   engine's events, ``events_batch`` and the launch timed in turns
+   against the single engine, and each shard's K1 between CUDA events
+   on its stream (did shards sharing a card overlap); (b) phase 8(a)'s stream through
+   ``tokenize_stream_pipelined`` on it, in turns with the single
+   engine, byte-equal to the native oracle; (c) two processes over gloo
+   (``parallel/distributed.py``), each on ``cuda:{rank % device_count}``,
+   through ``run_corpus_distributed`` on phase 9's 64 files after a
+   warm-up run: outputs byte-equal to phase 9's, the summed counters
+   equal to phase 9's, and a second run skipping every file with no K1
+   launch.
 
 ``--profile`` adds a breakdown of the phase-4 wave after phase 4: each
 stage timed on the host clock between ``torch.cuda.synchronize()``
@@ -78,14 +93,14 @@ fails if the port loaded jax or any module of the JAX package.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its paths (K1: phase 4's wave,
-phase 8's timed runs and phase 9's first corpus run; KF and KP: their
-probe scripts), its largest error against the plain version, both
-times at its path's shape, its bound (the larger of its bytes over
+phase 8's timed runs, phase 9's first corpus run and phase 10's sharded
+runs, the two ranks' included; KF and KP: their probe scripts), its
+largest error against the plain version, both times at its path's shape, its bound (the larger of its bytes over
 3.35 TB/s and, for K1, its instructions over the card's issue rate,
 from this run's inputs) and the time of one PyTorch call computing the
 same function, where there is one; K1's entry adds its time with the
 ``"auto"`` hot set and that set's size, its time with one text on every
-lane and the cold shares; KF's and KP's add their device time a call,
+lane, the cold shares and phase 10's numbers; KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -270,7 +285,8 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     and with ``eng_hot``'s hot set in turns; ``chip`` holds the SMs,
     the top clock and the step loop's instructions for the bound.
     Returns a dict of K1's launches on the main path, max abs err, its
-    times, the plain time, the bound and the hot set's cold share."""
+    times, the plain time, the bound, the hot set's cold share and the
+    main path's events of each lane (``evs``)."""
     from datok_tpu_torch.kernels import transduce as kt
     from datok_tpu_torch.utils.native import native_state_census
 
@@ -370,7 +386,7 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     print(f"{label}: K1 in turns with one text on every lane, hot_size=0 /"
           f" auto / auto / 0: {u1:.4f} / {uh1:.4f} / {uh2:.4f} / {u2:.4f} "
           f"ms (means of 10) [{card}]", flush=True)
-    return {"launches": launches, "err": err, "ms": ms,
+    return {"launches": launches, "err": err, "ms": ms, "evs": evs,
             "ms_auto": (h1 + h2) / 2, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": by, "cold_share": share,
             "ms_same_text": (u1 + u2) / 2, "ms_same_text_auto": (uh1 + uh2) / 2}
@@ -863,7 +879,8 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
     defaults on ``eng_hot``, whose first wave, as the pipeline launched
     it, runs through K1 with no hot set and with ``eng_hot``'s in turns.
     Returns K1's launches in the timed runs, the hot set's cold share
-    of the untimed run and the wave's K1 times."""
+    of the untimed run, the wave's K1 times and stream (a) with its
+    oracle output."""
     from datok_tpu_torch.runtime import engine as engine_mod
     tok = eng.tok
     t0 = time.perf_counter()
@@ -954,7 +971,7 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
         print(f"profile: (a) alone on the host: split_stream {t1 - t0:.3f} s "
               f"({len(docs)} documents), predict_entries {t2 - t1:.3f} s "
               f"[{card}]", flush=True)
-    return launches, cold, wave8
+    return launches, cold, wave8, (text_a, want_a)
 
 
 def cut_mid_word(text):
@@ -973,7 +990,8 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
     equal to the native oracle; a second run must skip every file and
     launch nothing; ``python -m datok_tpu_torch.cli tokenize --batch``
     on one file in a subprocess must print the oracle's bytes.  Returns
-    K1's launches of the first corpus run."""
+    K1's launches and the printed stats of the first corpus run, the
+    files' texts and their outputs."""
     import contextlib
     import tempfile
 
@@ -1019,11 +1037,13 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
         if (stats["done"], stats["skipped"]) != (n_files, 0):
             raise RuntimeError(f"corpus: {stats}")
         t0 = time.perf_counter()
+        outputs = []
         for f, t in zip(files, texts):
             with open(os.path.join(out, os.path.basename(f) + ".tok"),
                       encoding="utf-8") as fh:
-                check_same(f"corpus {os.path.basename(f)}", fh.read(),
-                           native_oracle(dtt, eng, t))
+                outputs.append(fh.read())
+            check_same(f"corpus {os.path.basename(f)}", outputs[-1],
+                       native_oracle(dtt, eng, t))
         print(f"corpus: {json.dumps(stats)}", flush=True)
         print(f"corpus: {n_files} files, {n_bytes} bytes in {wall:.3f} s, "
               f"{n_bytes / wall / 1e6:.2f} MB/s; K1 launches {launches}; "
@@ -1055,7 +1075,317 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
               f"characters, ends mid-word): stdout byte-equal to the native "
               f"oracle, {time.perf_counter() - t0:.2f} s with start-up "
               f"[{card}]", flush=True)
-    return launches
+    return launches, stats, texts, outputs
+
+# One rank of phase 10(c): joins the group from MASTER_ADDR, MASTER_PORT,
+# WORLD_SIZE and RANK, shards over its row of the device grid (LOCAL_RANK
+# picks its card), runs the corpus once to warm up, then fresh and again
+# into the output directory, and writes its reduced counters, K1
+# launches and wall seconds of the last two runs to a JSON file.
+RANK_WORKER = r"""
+import json, sys, time
+import torch, torch.distributed
+from datok_tpu_torch import ShardedEngine, load_tokenizer_file
+from datok_tpu_torch.kernels import transduce as kt
+from datok_tpu_torch.parallel import distributed as dist
+model, out_dir, result, *files = sys.argv[1:]
+if not dist.initialize() or dist.get_world_size() != 2:
+    raise RuntimeError("the process group did not form")
+devices = dist.global_mesh()[dist.get_rank()]
+eng = ShardedEngine(load_tokenizer_file(model), devices=devices)
+# a warm-up run into another directory: pinned host memory, the native
+# library and K1 come up outside the timed runs
+dist.run_corpus_distributed(eng.tok, files, out_dir + ".warm", engine=eng)
+runs = []
+for _ in range(2):
+    kt.transduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = dist.run_corpus_distributed(eng.tok, files, out_dir, engine=eng)
+    torch.cuda.synchronize()
+    runs.append({"stats": st, "launches": kt.transduce.launches,
+                 "wall_s": time.perf_counter() - t0})
+with open(result, "w", encoding="utf-8") as f:
+    json.dump({"rank": dist.get_rank(), "devices": [str(d) for d in devices],
+               "fresh": runs[0], "resume": runs[1]}, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def k1_windows(seng, run):
+    """One ``run()`` of ``seng``'s sharded launch with each K1 launch
+    between two CUDA events on its shard's stream; returns each shard's
+    (card, start ms, end ms), counted from an event recorded on that
+    card before the run (windows on one card share a clock)."""
+    from datok_tpu_torch.kernels import transduce as kt
+    from datok_tpu_torch.parallel import mesh
+
+    marks, starts = [], {}
+
+    def timed(*args, **kw):
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        begin.record()
+        res = kt.transduce(*args, **kw)
+        end.record()
+        marks.append((torch.cuda.current_device(), begin, end))
+        return res
+
+    cards = sorted({d.index for d in seng.devices})
+    for c in cards:
+        torch.cuda.synchronize(c)
+        with torch.cuda.device(c):
+            starts[c] = torch.cuda.Event(enable_timing=True)
+            starts[c].record()
+    mesh.transduce = timed
+    try:
+        run()
+    finally:
+        mesh.transduce = kt.transduce
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return [(c, starts[c].elapsed_time(b), starts[c].elapsed_time(e))
+            for c, b, e in marks]
+
+
+def wave_counters(dtt, eng, texts):
+    """Phase 10's reference counters: the single engine's events of the
+    wave (each lane's first ``counts`` columns) and exit states."""
+    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    ev, counts, bad, _steps, state = eng.run_raw(meta, lengths)
+    kinds = np.where(np.arange(ev.shape[1])[None, :] < counts[:, None],
+                     ev & 3, 0)
+    return {"tokens": int((kinds == dtt.EV_TOKEN).sum()),
+            "sentences": int((kinds == dtt.EV_SENT).sum()),
+            "texts": int((kinds == dtt.EV_TEXT).sum()),
+            "chars": int(lengths.sum()),
+            "backtracks": int(state[:, 4].sum()),
+            "force_emits": int(state[:, 5].sum()),
+            "fallback_lanes": int(bad.sum())}
+
+
+def shard_phase(dtt, kt, eng, card, devices, texts, evs4, stream8, corpus9):
+    """Phase 10: the sharded engine over ``devices`` (None: every card).  (a) Phase 4's wave through ``events_batch``: every lane equal
+    to phase 4's (which equal the native oracle), one K1 launch a shard;
+    ``corpus_stats`` equal to the counters of the single engine's
+    events; ``events_batch`` and the sharded launch timed in turns
+    against the single engine's, and each shard's K1 between CUDA
+    events on its stream, which shows whether shards sharing a card
+    overlapped.  (b) Phase 8(a)'s
+    stream through ``tokenize_stream_pipelined`` on the sharded engine,
+    byte-equal to the native oracle, in turns with the single engine.
+    (c) Two processes over gloo, each
+    on ``cuda:{rank % device_count}``, through ``run_corpus_distributed``
+    on phase 9's 64 files: outputs byte-equal to phase 9's, the reduced
+    counters equal to phase 9's run, and a second run skipping every
+    file.  Returns K1's launches on (a), (b) and (c) and the phase's
+    numbers."""
+    import socket
+    import tempfile
+
+    from datok_tpu_torch.parallel.mesh import ShardedEngine
+
+    tok = eng.tok
+    n_cards = torch.cuda.device_count()
+    seng = ShardedEngine(tok, devices=devices)
+    n = seng.n_shards
+    where = (f"{n} shards on {', '.join(str(d) for d in seng.devices)}; "
+             f"torch.cuda.device_count() {n_cards}: "
+             + ("shards share a card, so this measures the sharded launch "
+                "path, not scaling" if len(set(seng.devices)) < n
+                else "one shard a card"))
+    print(f"shard: {where} [{card}]", flush=True)
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+
+    # (a) the wave
+    torch.cuda.synchronize()
+    kt.transduce.launches = 0
+    evs = seng.events_batch(texts, as_arrays=True)
+    launches_a = kt.transduce.launches
+    if launches_a != n:
+        raise RuntimeError(f"shard (a): {launches_a} K1 launches for {n} "
+                           "shards")
+    for i, (got, want) in enumerate(zip(evs, evs4)):
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"shard (a): lane {i} differs from phase 4's "
+                               f"events: {texts[i][:80]!r}")
+    steps = seng.last_shard_steps
+    stats = seng.corpus_stats(texts)
+    want = wave_counters(dtt, eng, texts)
+    diff = {k: (stats[k], v) for k, v in want.items() if stats[k] != v}
+    if diff:
+        raise RuntimeError(f"shard (a): corpus_stats differ from the single "
+                           f"engine's counters (got, want): {diff}")
+    print(f"shard (a): events_batch of phase 4's {len(texts)} lanes equal to "
+          f"phase 4's, K1 launches {launches_a} (one a shard), shard steps "
+          f"{steps.tolist()}; corpus_stats {json.dumps(stats)} equal to the "
+          f"single engine's counters [{card}]", flush=True)
+
+    def wall(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.events_batch(texts, as_arrays=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall(eng)
+    wall(seng)
+    eb = [wall(eng), wall(seng), wall(seng), wall(eng)]
+    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    args = to_cuda(meta, lengths)
+    single = lambda: kt.transduce(eng.tables, *args,  # noqa: E731
+                                  eng.max_steps_for(meta.shape[1]))
+    sharded = lambda: seng._launch(*args)  # noqa: E731
+    k = [cuda_ms(f, n=10, warmup=2)[0]
+         for f in (single, sharded, sharded, single)]
+    windows = k1_windows(seng, sharded)
+    if len(windows) != n:
+        raise RuntimeError(f"shard (a): {len(windows)} K1 windows for {n} "
+                           "shards")
+    # on each card shared by shards: did some K1 start before the one
+    # before it ended, and their summed time over the span of their union
+    shared = {}
+    for c, a, b in windows:
+        shared.setdefault(c, []).append((a, b))
+    shared = {c: sorted(w) for c, w in shared.items() if len(w) > 1}
+    overlapped = {c: any(a2 < b1 for (_, b1), (a2, _) in zip(w, w[1:]))
+                  for c, w in shared.items()}
+    concurrency = {c: sum(b - a for a, b in w)
+                   / (max(b for _, b in w) - min(a for a, _ in w))
+                   for c, w in shared.items()}
+    print(f"shard (a): events_batch in turns, single / sharded / sharded / "
+          f"single: {' / '.join(f'{x:.1f}' for x in eb)} ms "
+          f"({n_bytes / (eb[0] + eb[3]) * 2 / 1e3:.2f} / "
+          f"{n_bytes / (eb[1] + eb[2]) * 2 / 1e3:.2f} MB/s); the launch "
+          f"(CUDA events, means of 10), one K1 / the sharded launch ({n} K1 "
+          f"on their streams) / the same / one K1: "
+          f"{' / '.join(f'{x:.4f}' for x in k)} ms [{card}]", flush=True)
+    print(f"shard (a): each shard's K1 between CUDA events on its stream, "
+          f"ms from an event on its card before the launch: "
+          f"{', '.join(f'cuda:{c} {a:.4f}-{b:.4f}' for c, a, b in windows)}; "
+          f"on a card shared by shards, overlapped {json.dumps(overlapped)}, "
+          f"concurrency (their summed time over the span of their union) "
+          f"{json.dumps(concurrency)} [{card}]", flush=True)
+
+    # (b) the pipelined stream, in turns with the single engine
+    text_a, want_a = stream8
+    nb = len(text_a.encode("utf-8"))
+
+    def pipelined(e):
+        st = {}
+        kt.transduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dtt.tokenize_stream_pipelined(
+            tok, text_a, dtt.NativeWriter(dtt.SIMPLE), engine=e,
+            stats=st).getvalue()
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        check_same(f"shard (b) pipelined on {type(e).__name__}", got, want_a)
+        return w, kt.transduce.launches, st
+
+    turns = [pipelined(e) for e in (eng, seng, seng, eng)]
+    launches_b = turns[1][1] + turns[2][1]
+    if min(turns[1][1], turns[2][1]) < n:
+        raise RuntimeError(f"shard (b): K1 launches by run "
+                           f"{[t[1] for t in turns]}")
+    mbps_b = [nb / w / 1e6 for w, _, _ in turns]
+    print(f"shard (b): phase 8(a)'s stream pipelined (defaults) in turns, "
+          f"single / sharded / sharded / single: "
+          f"{' / '.join(f'{x:.2f}' for x in mbps_b)} MB/s ({nb} bytes), each "
+          f"byte-equal to the native oracle; K1 launches of the sharded runs "
+          f"{launches_b}; the first's {stage_line(turns[1][2], turns[1][0])}"
+          f" [{card}]", flush=True)
+
+    # (c) two processes over gloo
+    launches9, stats9, texts9, outputs9 = corpus9
+    with tempfile.TemporaryDirectory(prefix="datok-smoke-dist-") as d:
+        model = os.path.join(d, "synth.matok")
+        tok.save(model)
+        files = []
+        for i, t in enumerate(texts9):
+            files.append(os.path.join(d, f"doc{i:02d}.txt"))
+            with open(files[-1], "w", encoding="utf-8") as f:
+                f.write(t)
+        out = os.path.join(d, "out")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+               "PYTHONPATH": root}
+        results = [os.path.join(d, f"rank{r}.json") for r in range(2)]
+        logs = [open(os.path.join(d, f"rank{r}.err"), "w+", encoding="utf-8")
+                for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_WORKER, model, out, res, *files],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=root,
+            stdout=subprocess.DEVNULL, stderr=log, text=True)
+            for r, (res, log) in enumerate(zip(results, logs))]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_c = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            err = log.read()
+            log.close()
+            if p.returncode != 0:
+                raise RuntimeError(f"shard (c): rank {r} exit code "
+                                   f"{p.returncode}: {err[-3000:]}")
+        ranks = []
+        for res in results:
+            with open(res, encoding="utf-8") as f:
+                ranks.append(json.load(f))
+        fresh = ranks[0]["fresh"]["stats"]
+        if ranks[1]["fresh"]["stats"] != fresh or fresh["processes"] != 2:
+            raise RuntimeError(f"shard (c): the ranks' counters differ: "
+                               f"{[r['fresh']['stats'] for r in ranks]}")
+        keys = ("done", "skipped", "total", "bytes_in", "bytes_out")
+        if any(fresh[k] != stats9[k] for k in keys):
+            raise RuntimeError(f"shard (c): {fresh} against phase 9's "
+                               f"{stats9}")
+        for r in ranks:
+            again = r["resume"]
+            if ((again["stats"]["done"], again["stats"]["skipped"])
+                    != (0, len(files)) or again["launches"]):
+                raise RuntimeError(f"shard (c) resume: rank {r['rank']}: "
+                                   f"{again}")
+        for f, want9 in zip(files, outputs9):
+            with open(os.path.join(out, os.path.basename(f) + ".tok"),
+                      encoding="utf-8") as fh:
+                check_same(f"shard (c) {os.path.basename(f)}", fh.read(),
+                           want9)
+        for m in ("manifest.p0.json", "manifest.p1.json"):
+            if not os.path.exists(os.path.join(out, m)):
+                raise RuntimeError(f"shard (c): no {m}")
+    per_rank = [r["fresh"]["launches"] for r in ranks]
+    if min(per_rank) < 1:
+        raise RuntimeError(f"shard (c): K1 launches by rank {per_rank}")
+    walls = [r["fresh"]["wall_s"] for r in ranks]
+    print(f"shard (c): 2 processes over gloo on "
+          f"{', '.join(str(r['devices']) for r in ranks)}: "
+          f"{json.dumps(fresh)} equal to phase 9's counters, every output "
+          f"byte-equal to phase 9's; K1 launches by rank {per_rank}; a "
+          f"rank's run {' / '.join(f'{w:.3f}' for w in walls)} s "
+          f"({stats9['bytes_in'] / max(walls) / 1e6:.2f} MB/s over both); "
+          f"the resume skipped all {len(files)} files with 0 launches on "
+          f"both ranks; {wall_c:.2f} s with the processes' start-up "
+          f"[{card}]", flush=True)
+    launches_c = sum(per_rank)
+    return launches_a + launches_b + launches_c, {
+        "shards": n, "devices": [str(d) for d in seng.devices],
+        "device_count": n_cards, "events_batch_ms": eb,
+        "launch_ms": k, "k1_windows_ms": windows, "overlapped": overlapped,
+        "concurrency": concurrency, "pipelined_mbps": mbps_b,
+        "launches": {"a": launches_a, "b": launches_b, "c": launches_c},
+        "corpus_rank_wall_s": walls}
 
 
 def main():
@@ -1178,15 +1508,23 @@ def main():
                            opts.profile)
 
     # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
-    launches8, cold8, wave8 = overlap_phase(dtt, kt, eng, eng_hot, card,
-                                            texts, stream7, opts.profile)
+    launches8, cold8, wave8, stream8 = overlap_phase(
+        dtt, kt, eng, eng_hot, card, texts, stream7, opts.profile)
 
     # 9. the corpus runner and the CLI
-    launches9 = corpus_phase(dtt, kt, eng, card, texts)
+    corpus9 = corpus_phase(dtt, kt, eng, card, texts)
+    launches9 = corpus9[0]
+
+    # 10. the sharded engine (every card, or cuda:0 twice on one) and two
+    # processes over gloo
+    devices = None if torch.cuda.device_count() > 1 else ["cuda:0", "cuda:0"]
+    launches10, shard10 = shard_phase(dtt, kt, eng, card, devices, texts,
+                                      w4["evs"], stream8, corpus9)
     launches = w4["launches"]
     cold = {"4": w4["cold_share"], "7": stream7[2], "8": cold8}
     print(f"K1 launches by path: phase 4 wave {launches}, phase 8 "
-          f"{launches8}, phase 9 corpus {launches9}; with the auto hot set "
+          f"{launches8}, phase 9 corpus {launches9}, phase 10 sharded "
+          f"{launches10} {json.dumps(shard10['launches'])}; with the auto hot set "
           f"({eng_hot.hot_size} states) the cold share by phase "
           f"{json.dumps(cold)}", flush=True)
 
@@ -1201,7 +1539,7 @@ def main():
         "route": "cuda",
         "source": "datok_tpu_torch/csrc/transduce.cu",
         "replaces": "datok_tpu/runtime/pallas_engine.py:384",
-        "launches": launches + launches8 + launches9,
+        "launches": launches + launches8 + launches9 + launches10,
         "max_abs_err": max(err3, w4["err"]),
         "ms": w4["ms"],
         "plain_ms": w4["plain_ms"],
@@ -1215,6 +1553,7 @@ def main():
         "ms_same_text": w4["ms_same_text"],
         "ms_same_text_auto": w4["ms_same_text_auto"],
         "phase8_wave": wave8,
+        "phase10": shard10,
     }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -3,18 +3,21 @@
 The batched transduce path of :mod:`datok_tpu` on an NVIDIA H100: the
 device machine is K1, a CUDA kernel written for Hopper
 (``csrc/transduce.cu``), beside a plain PyTorch version of the same
-machine that runs on the CPU.  The jax-free host layers of
-:mod:`datok_tpu` (model formats, encoder, oracle, events, writer and
-the native host library) are imported, not copied; this package never
-imports jax.
+machine that runs on the CPU.  The package keeps its own copies of the
+host layers of :mod:`datok_tpu` (model formats, encoder, oracle,
+events, writer and the native host library); it imports neither jax
+nor anything of :mod:`datok_tpu`.  Entry points run on ``"cuda"``
+unless the caller names another device.
 
     from datok_tpu_torch import load_tokenizer_file, BatchEngine
     tok = load_tokenizer_file("tokenizer_de.matok")
-    eng = BatchEngine(tok, device="cuda")
+    eng = BatchEngine(tok)                       # K1 on the card
+    eng = ShardedEngine(tok)                     # lanes over every card
     outs = eng.tokenize_batch(["Der alte Mann.", "..."])
     out = tokenize_stream(tok, stream_text, engine=eng).getvalue()
     out = tokenize_stream_pipelined(tok, stream_text, engine=eng).getvalue()
     CorpusRunner(tok, "out/", engine=eng).run(["a.txt", "b.txt"])
+    run_corpus_distributed(tok, files, "out/")  # one shard of files a rank
 
 The same commands as ``datok-tpu``: ``python -m datok_tpu_torch.cli``
 (``tokenize``, ``corpus``, ``convert``; ``--device cuda`` by default).
@@ -23,6 +26,8 @@ The same commands as ``datok-tpu``: ``python -m datok_tpu_torch.cli``
 from .fsa.double_array import DaTokenizer, load_datok_file
 from .fsa.io import load_tokenizer_file
 from .fsa.matrix import MatrixTokenizer, load_matrix_file
+from .parallel.distributed import run_corpus_distributed
+from .parallel.mesh import ShardedEngine
 from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
 from .runtime.events import (EV_SENT, EV_TEXT, EV_TOKEN,
@@ -41,6 +46,7 @@ __all__ = [
     "DaTokenizer",
     "MatrixTokenizer",
     "NativeWriter",
+    "ShardedEngine",
     "load_datok_file",
     "load_matrix_file",
     "load_tokenizer_file",
@@ -57,6 +63,7 @@ __all__ = [
     "tokenize_reader",
     "tokenize_stream_pipelined",
     "waves_pipelined",
+    "run_corpus_distributed",
     "EV_TOKEN",
     "EV_SENT",
     "EV_TEXT",

@@ -5,14 +5,16 @@ the plain machine (:func:`datok_tpu_torch.runtime.machine.run_machine`).
 Tensors on the CPU go to the plain machine; tensors on a CUDA device go
 to K1, and anything K1 does not take raises.  K1 keeps the rows of the
 tables' hot set (``tb.hot``) in shared memory; without one it reads
-every cell from the whole table.  ``transduce.launches`` counts K1
+every cell from the whole table.  ``out=`` takes preallocated outputs
+(:func:`outputs`), so that several launches, one a block of lanes, can
+write row blocks of one buffer.  ``transduce.launches`` counts K1
 launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,7 +55,10 @@ def _check(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total):
     return B, L
 
 
-def _outputs(B: int, max_steps: int, dev):
+def outputs(B: int, max_steps: int, dev):
+    """Empty outputs of a ``B``-lane launch on ``dev``: ``(events (B,
+    max_steps) int32, counts (B,) int32, bad (B,) bool, state (B, 6)
+    int32, steps (B,) int32, cold (2,) int64)``."""
     return (
         torch.empty((B, max_steps), dtype=torch.int32, device=dev),
         torch.empty(B, dtype=torch.int32, device=dev),
@@ -62,6 +67,20 @@ def _outputs(B: int, max_steps: int, dev):
         torch.empty(B, dtype=torch.int32, device=dev),
         torch.empty(2, dtype=torch.int64, device=dev),
     )
+
+
+def _check_out(out, B: int, max_steps: int, dev):
+    specs = (((B, max_steps), torch.int32), ((B,), torch.int32),
+             ((B,), torch.bool), ((B, 6), torch.int32), ((B,), torch.int32),
+             ((2,), torch.int64))
+    if len(out) != len(specs):
+        raise ValueError(f"out must hold {len(specs)} tensors, got {len(out)}")
+    for i, (o, (shape, dtype)) in enumerate(zip(out, specs)):
+        if (o.device != dev or o.dtype != dtype or tuple(o.shape) != shape
+                or not o.is_contiguous()):
+            raise ValueError(
+                f"out[{i}] must be a contiguous {shape} {dtype} tensor on "
+                f"{dev}, got {tuple(o.shape)} {o.dtype} on {o.device}")
 
 
 def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
@@ -87,20 +106,30 @@ def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
 
 def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
               entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
-              cold_total: Optional[torch.Tensor] = None):
+              cold_total: Optional[torch.Tensor] = None,
+              out: Optional[Sequence[torch.Tensor]] = None):
     """Run every lane of the wave; see ``run_machine`` for the
     arguments and the returned ``(events, counts, bad, state, steps,
     cold)``.  On a CUDA device only ``events[i, :counts[i]]`` is
     written.  ``cold_total``, a (2,) int64 tensor on the same device,
     gains ``cold`` (on the card with atomics, so launches on several
-    streams may share it)."""
+    streams may share it).  ``out``, six contiguous tensors of the
+    shapes :func:`outputs` gives, on the same device, receives the
+    results and is returned (on the CPU the plain machine's are copied
+    in)."""
     B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
     dev = meta.device
+    if out is not None:
+        _check_out(out, B, max_steps, dev)
     if dev.type == "cpu":
-        out = run_machine(tb, meta, lengths, entries, stops, max_steps)
+        res = run_machine(tb, meta, lengths, entries, stops, max_steps)
         if cold_total is not None:
-            cold_total += out[5]
-        return out
+            cold_total += res[5]
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA devices, not {dev}")
     if tb.kind != "MATOK":
@@ -108,7 +137,7 @@ def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
     if tb.n_cells >= 1 << 31:
         raise ValueError(f"{tb.n_cells} cells: K1 takes fewer than 2^31")
     lib = build.load(build.TRANSDUCE)
-    outs = _outputs(B, max_steps, dev)
+    outs = outputs(B, max_steps, dev) if out is None else tuple(out)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dt_transduce_launch(
@@ -136,7 +165,7 @@ def transduce_host(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
     if meta.device.type != "cpu" or tb.kind != "MATOK":
         raise ValueError("the host build takes CPU tensors of a matrix model")
     lib = build.load(build.TRANSDUCE_HOST)
-    outs = _outputs(B, max_steps, meta.device)
+    outs = outputs(B, max_steps, meta.device)
     rc = lib.dt_transduce_host(
         *_args(tb, meta, lengths, entries, stops, max_steps, outs, cold_total)
     )

@@ -6,7 +6,8 @@ interrupted run resumes where it stopped.  The manifest format, the
 atomic save, the hashes, the resume logic, ``out_path`` and the
 ``pack_len="auto"`` rule are the JAX module's; every pending file runs
 through this package's :func:`~datok_tpu_torch.runtime.overlap.waves_pipelined`.
-There is no default engine: pass ``engine=`` or ``device=``.
+Without ``engine=``, the runner's engine runs on ``device=`` (``"cuda"``
+by default).
 """
 
 from __future__ import annotations

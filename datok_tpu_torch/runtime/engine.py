@@ -36,8 +36,8 @@ from .writer import SIMPLE
 class BatchEngine:
     """Batched tokenization of many texts as parallel lanes.
 
-    ``device`` is a torch device: ``"cuda"`` runs K1 and raises when no
-    card is present; ``"cpu"`` runs the plain machine.  A ``.datok``
+    ``device`` is a torch device: ``"cuda"`` (the default) runs K1 and
+    raises when no card is present; ``"cpu"`` runs the plain machine.  A ``.datok``
     model is converted to the dense matrix layout, which K1 needs.
     ``steps_factor`` sets each lane's step budget (:meth:`max_steps_for`).
 
@@ -53,7 +53,7 @@ class BatchEngine:
     changes where K1 reads cells, never its results.
     """
 
-    def __init__(self, tok, device, steps_factor: float = 2.0,
+    def __init__(self, tok, device="cuda", steps_factor: float = 2.0,
                  hot_size: Union[int, str] = 0):
         device = torch.device(device)
         if device.type == "cuda":
@@ -138,8 +138,12 @@ class BatchEngine:
                 f"{MAX_SEGMENT}; use the segmentation pipeline for longer "
                 "streams"
             )
+        return self._run(meta, lengths, entries, stops, self.max_steps_for(L))
+
+    def _run(self, meta, lengths, entries, stops, max_steps: int):
+        """One launch of the device machine over the wave."""
         *out, self._last_cold = transduce(
-            self.tables, meta, lengths, entries, stops, self.max_steps_for(L),
+            self.tables, meta, lengths, entries, stops, max_steps,
             cold_total=self._cold_total)
         return tuple(out)
 

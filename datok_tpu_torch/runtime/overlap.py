@@ -24,9 +24,11 @@ which also guarantees that its copies and K1 launch have finished.
 
 What differs from the JAX module: K1 writes compact event rows, so
 there is no ``_compact_ys`` step; K1 reads the whole table, so there is
-no per-wave census or hot spec (the ``census`` stats key stays 0.0);
-the mesh's shard-balancing branch waits for the multi-GPU port.  The
-CPU device has no streams and no pinned memory: there the slot's
+no per-wave census or hot spec (the ``census`` stats key stays 0.0).
+The lane placement is the JAX module's: on a sharded engine
+(:class:`~datok_tpu_torch.parallel.mesh.ShardedEngine`) the lanes are
+dealt over the shards by :func:`~datok_tpu_torch.parallel.mesh.balance_perm`.
+The CPU device has no streams and no pinned memory: there the slot's
 buffers are plain tensors and the plain machine runs in the prep
 thread.
 
@@ -363,18 +365,28 @@ def waves_pipelined(
                         np.ones(B_pad - B_real, dtype=np.int32),
                     ]
                 )
-                # Lane placement: a plain length sort, which groups
-                # lanes of similar length into one warp (K1 runs one
-                # lane per thread, so a warp retires with its longest
-                # lane).  Results are unpermuted at consume via
-                # inv[:B_real]; the entry chain does not depend on lane
-                # placement.
+                # Lane placement: on a sharded engine, the snake deal of
+                # balance_perm (the shards take contiguous blocks of
+                # lanes, so each gets equal work); on one device a plain
+                # length sort, which groups lanes of similar length into
+                # one warp (K1 runs one lane per thread, so a warp
+                # retires with its longest lane).  Results are
+                # unpermuted at consume via inv[:B_real]; the entry
+                # chain does not depend on lane placement.
                 inv = None
+                n_sh = getattr(engine, "n_shards", 1)
                 lens_full = [len(d) for d in full_docs]
-                if B_real > 64 and min(lens_full[:B_real]) != max(
+                if n_sh > 1 and B_real > n_sh:
+                    from ..parallel.mesh import balance_perm
+
+                    perm = balance_perm(lens_full, n_sh)
+                elif B_real > 64 and min(lens_full[:B_real]) != max(
                     lens_full[:B_real]
                 ):
                     perm = np.argsort(np.asarray(lens_full), kind="stable")
+                else:
+                    perm = None
+                if perm is not None:
                     inv_full = np.empty_like(perm)
                     inv_full[perm] = np.arange(len(perm))
                     enc_docs = [full_docs[i] for i in perm]
@@ -671,8 +683,8 @@ def tokenize_stream_pipelined(
 
     Byte-identical output; use for large streams where end-to-end wall
     clock matters.  When the writer is native (``NativeWriter``) the
-    whole wave is formatted in one GIL-releasing C call.  ``engine`` or
-    ``device`` is required; ``stats`` gains ``format`` seconds.
+    whole wave is formatted in one GIL-releasing C call.  ``engine`` and
+    ``device`` as there; ``stats`` gains ``format`` seconds.
     """
     w = writer if writer is not None else TokenWriter(
         SIMPLE if flags is None else flags

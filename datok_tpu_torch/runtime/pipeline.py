@@ -21,8 +21,8 @@ segment.
 
 What differs from the JAX module: the engine returns compact event rows
 (``run_events_compact``, decoded by ``decode_events_compact``) instead
-of a step-indexed buffer, and there is no default engine: callers pass
-``engine=`` or a ``device=``.
+of a step-indexed buffer.  A caller that passes neither ``engine=`` nor
+``device=`` gets an engine on ``"cuda"``, which raises without a card.
 """
 
 from __future__ import annotations
@@ -685,11 +685,10 @@ def _replay_docs(docs, events, w) -> None:
 
 
 def _engine(tok, engine: Optional[BatchEngine], device) -> BatchEngine:
+    """``engine``, or a new one on ``device`` (``"cuda"`` when None)."""
     if engine is not None:
         return engine
-    if device is None:
-        raise ValueError("pass engine= or device= (there is no default device)")
-    return BatchEngine(tok, device=device)
+    return BatchEngine(tok, device="cuda" if device is None else device)
 
 
 def tokenize_stream(
@@ -710,8 +709,9 @@ def tokenize_stream(
     documents over ``MAX_SEGMENT``: ``"auto"`` (speculative for fewer
     than 64 of them in a wave), ``"speculative"`` or ``"chained"``.
 
-    ``engine`` or ``device`` is required.  Returns the writer (a new
-    ``SIMPLE`` one if none is given).
+    Without ``engine``, a new engine runs on ``device`` (``"cuda"`` by
+    default).  Returns the writer (a new ``SIMPLE`` one if none is
+    given).
     """
     w = writer if writer is not None else TokenWriter(SIMPLE)
     engine = _engine(tok, engine, device)
@@ -744,8 +744,7 @@ def tokenize_reader(
     forward.  ``reader`` may be binary (incremental UTF-8 decode, split
     multi-byte sequences are safe) or text mode.  Output is
     byte-identical to :func:`tokenize_stream` on the whole stream.
-
-    ``engine`` or ``device`` is required.
+    ``engine`` and ``device`` as there.
     """
     w = writer if writer is not None else TokenWriter(SIMPLE)
     engine = _engine(tok, engine, device)

@@ -138,8 +138,11 @@ def test_corpus_shared_waves_fresh_chains(models, engines, jax_engines,
     assert _out_hashes(out) == _out_hashes(jout)
 
 
-def test_corpus_needs_engine_or_device(models, tmp_path):
-    with pytest.raises(ValueError):
+def test_corpus_needs_engine_or_device(models, tmp_path, monkeypatch):
+    """Naming neither asks for an engine on "cuda", which raises without
+    a card, before the output directory is made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
         CorpusRunner(models["matok"], str(tmp_path / "out"))
     assert not (tmp_path / "out").exists()
 

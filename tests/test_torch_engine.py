@@ -164,6 +164,24 @@ def test_cuda_without_card_raises(tok):
         BatchEngine(tok, device="cuda")
 
 
+@pytest.mark.parametrize("surface", ["BatchEngine", "run_corpus_distributed"])
+def test_no_device_named_means_cuda(tok, tmp_path, monkeypatch, surface):
+    """Entry points run on the card unless the caller names a device: a
+    call naming neither an engine nor a device asks for "cuda", which
+    raises without a card (the stream surfaces and the corpus runner
+    are held to this in their own test files)."""
+    import datok_tpu_torch as dtt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "BatchEngine": lambda: BatchEngine(tok),
+        "run_corpus_distributed": lambda: dtt.run_corpus_distributed(
+            tok, [], str(tmp_path)),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[surface]()
+
+
 def test_empty_wave(tok):
     eng = BatchEngine(tok, device="cpu")
     assert eng.events_batch([]) == []

@@ -1,7 +1,8 @@
 """The port never imports jax, nor anything of ``datok_tpu``: a fresh
 interpreter imports ``datok_tpu_torch`` with its stream, overlap,
-corpus, CLI, debug, hot-set and probe modules, tokenizes a wave and a
-stream (serial and overlapped) on the CPU and finds no jax module and
+corpus, CLI, debug, hot-set, probe and parallel modules, tokenizes a
+wave (on one device and over two shards) and a stream (serial and
+overlapped) on the CPU and finds no jax module and
 no ``datok_tpu`` module loaded; and no source file of the port, nor
 ``chip_smoke.py``, holds an import of ``datok_tpu``."""
 
@@ -22,6 +23,8 @@ import datok_tpu_torch.bench_micro.micro_ablate
 import datok_tpu_torch.bench_micro.micro_fused
 import datok_tpu_torch.bench_micro.micro_pallas
 import datok_tpu_torch.cli
+import datok_tpu_torch.parallel.distributed
+import datok_tpu_torch.parallel.mesh
 import datok_tpu_torch.runtime.corpus
 import datok_tpu_torch.runtime.debug
 import datok_tpu_torch.runtime.hot
@@ -33,6 +36,7 @@ texts = synth_text(tok, 8, 120, seed=2) + ["", "Mann.\\x04Frau."]
 eng = dtt.BatchEngine(tok, device="cpu")
 out = eng.tokenize_batch(texts)
 assert out == [tok.tokenize(t) for t in texts]
+assert dtt.ShardedEngine(tok, devices=["cpu"] * 2).tokenize_batch(texts) == out
 stream = "\\x04".join(texts)
 assert dtt.tokenize_stream(tok, stream, engine=eng).getvalue() == tok.tokenize(stream)
 got = dtt.tokenize_stream_pipelined(tok, stream, engine=eng, lanes=4)

@@ -262,8 +262,11 @@ def test_prep_error_reaches_caller(engines, monkeypatch, where):
     assert not _pipeline_threads()
 
 
-def test_stream_needs_engine_or_device(models):
-    with pytest.raises(ValueError):
+def test_stream_needs_engine_or_device(models, monkeypatch):
+    """Naming neither asks for an engine on "cuda", which raises without
+    a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
         dtt.tokenize_stream_pipelined(models["matok"], "a.")
 
 

@@ -10,6 +10,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 import datok_tpu.runtime.pipeline as JP
 import datok_tpu_torch as dtt
@@ -229,10 +230,13 @@ def test_events_until_checkpoint_resumes_exactly(models, engines, jax_engine, en
     assert evs + rest == transduce_events(jtok, text, entry_state=e0)
 
 
-def test_stream_needs_engine_or_device(models):
-    with pytest.raises(ValueError):
+def test_stream_needs_engine_or_device(models, monkeypatch):
+    """Naming neither asks for an engine on "cuda", which raises without
+    a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
         dtt.tokenize_stream(models["matok"], "a.")
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="cuda"):
         dtt.tokenize_reader(models["matok"], io.StringIO("a."))
 
 
