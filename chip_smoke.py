@@ -8,12 +8,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: builds K1 (csrc/transduce.cu), KF and KP from the
    repository's sources, all at once, one ``nvcc`` each, and counts
    the fewest instructions one pass of K1's step loop issues in its
-   SASS (``cuobjdump``);
+   SASS (``cuobjdump``), for each instantiation: the full form (run
+   skip and fused boundaries; the engine's) and the general form;
 3. kernel vs plain: K1 and the plain PyTorch machine on the same CUDA
    tensors (full-size synthetic model, B=4096 x L=256, without a hot
-   set and with the ``"auto"`` one) must agree exactly, cold-step
-   counts included; both are timed in turns (plain, kernel, kernel,
-   plain);
+   set and with the ``"auto"`` one), each in both forms, must agree
+   exactly, cold-step counts included; both are timed in turns (plain,
+   kernel, kernel, plain);
 4. main path: one wave of B=32768 x L=1024 through
    ``BatchEngine(tok, device="cuda").events_batch`` and the native
    writer; K1 must have launched, every lane must equal the native
@@ -22,6 +23,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    exactly and are timed in turns, and K1 with no hot set (the
    default, ``hot_size=0``) and with the ``"auto"`` one in turns, on
    the wave and on one of its shape whose lanes all read the same text;
+   then K1's general and full forms: equal on every lane both finish,
+   the full form never taking more steps, then in turns (general, full,
+   full, general), with each form's steps a character, instructions a
+   step and bound; the main path must not have launched the general
+   form;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
    through the same path;
 6. the probe kernels: KF (``csrc/hot_fetch.cu``, prepared once, select
@@ -52,7 +58,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    native oracle, K1 launched, the stage seconds printed beside the
    wall time; then, untimed, (a) with the defaults on an engine with
    the ``"auto"`` hot set, whose first wave, as the pipeline launched
-   it, runs through K1 with ``hot_size=0`` and ``"auto"`` in turns;
+   it (B=8192 x L=2048), runs through K1 with ``hot_size=0`` and
+   ``"auto"`` in turns, and through K1's two forms as in phase 4;
 9. the corpus runner and the CLI: the model saved as a ``.matok``, 64
    files cut from phase 8's documents (4 ending mid-word without EOT,
    1 empty) through ``datok_tpu_torch.cli.main(["corpus", ...])``, each
@@ -100,7 +107,10 @@ largest error against the plain version, both times at its path's shape, its bou
 from this run's inputs) and the time of one PyTorch call computing the
 same function, where there is one; K1's entry adds its time with the
 ``"auto"`` hot set and that set's size, its time with one text on every
-lane, the cold shares and phase 10's numbers; KF's and KP's add their device time a call,
+lane, the cold shares, its two forms' turns, steps a character,
+instructions a step and bounds on the waves of phases 4 and 8
+(``forms``), each instantiation's instructions a step (``step_instr``)
+and phase 10's numbers; KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -213,20 +223,22 @@ def bound_ms(n_bytes):
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def k1_bound(meta_args, res, n_states, step_instr, n_sm, clock_hz):
+def k1_bound(meta_args, res, n_states, step_instr, n_sm, clock_hz,
+             n_words=0):
     """K1's bound on one launch: the larger of its bytes over the memory
     rate and its instructions over the issue rate.  Bytes: each input
     read once (the meta words of each lane's length, the lane vectors,
     one 4-byte cell of each of the ``n_states`` states whose row the
-    walk reads) and each output written once (the events each lane
-    wrote, the lane vectors and state rows, the two counts).
+    walk reads, the full form's ``n_words`` per-state words) and each
+    output written once (the events each lane wrote, the lane vectors
+    and state rows, the two counts).
     Instructions: the lanes' steps times ``step_instr``, the fewest one
     pass of K1's step loop issues (its SASS), at 128 a clock on each of
     ``n_sm`` SMs at ``clock_hz``.  Returns (ms, "bytes" or "operations",
     bytes, bytes ms, steps, instructions ms)."""
     _meta, lengths, _entries, _stops = meta_args
     B = int(lengths.numel())
-    n = (4 * int(lengths.sum()) + 9 * B + 4 * n_states
+    n = (4 * int(lengths.sum()) + 9 * B + 4 * n_states + 4 * n_words
          + 4 * int(res[1].sum()) + (4 + 1 + 24 + 4) * B + 16)
     steps = int(res[4].long().sum())
     ops_ms = steps * step_instr / (n_sm * ISSUE_PER_SM_CLOCK * clock_hz) * 1e3
@@ -255,14 +267,88 @@ def k1_turns(args, tb_hot, tb_none, n=10):
     return (z1, h1, h2, z2), share
 
 
-def k1_kernel(B, n_sm):
-    """The instantiation of K1 that a launch of B lanes runs: its
-    blocks take ceil(B / SMs) lanes rounded up to a warp, at most 1024,
-    and up to 256 run the 256-thread kernel (transduce.cu)."""
+def k1_kernel(B, n_sm, form="full"):
+    """The instantiation of K1 that a launch of B lanes runs
+    (transduce.cu): its blocks take ceil(B / SMs) lanes rounded up to a
+    warp, at most 1024, and up to 256 run the 256-thread kernel."""
     per_sm = -(-B // n_sm)
-    threads = min(-(-per_sm // 32) * 32, 1024)
-    return "transduce_kernelILi256E" if threads <= 256 else \
-        "transduce_kernelILi1024E"
+    threads = 256 if min(-(-per_sm // 32) * 32, 1024) <= 256 else 1024
+    return f"transduce_kernelILi{threads}ELb{int(form == 'full')}EE"
+
+
+def k1_instances():
+    """Every instantiation of K1: both block sizes in both forms."""
+    return [f"transduce_kernelILi{t}ELb{f}EE" for t in (256, 1024)
+            for f in (0, 1)]
+
+
+def form_turns(args, label, chip, card, n_states, n=10):
+    """K1's general and full forms on the same inputs: the lanes that
+    finish in both must give the same events, counts and exit rows, and
+    the full form no more steps on any of them; then both in turns
+    (general, full, full, general), each the mean of ``n`` launches
+    after a warm-up, the steps a character of each, and each form's
+    bound from its steps and its step loop's instructions (the
+    ``n_states`` states whose rows the walk reads, and for the full form
+    the per-state words).  Returns the numbers for the ``kernels`` line."""
+    from datok_tpu_torch.kernels import transduce as kt
+
+    tb, meta, lengths, *_ = args
+    res = {"general": kt.transduce_general(*args), "full": kt.transduce(*args)}
+    (ev_g, c_g, bad_g, st_g, steps_g, _), (ev_f, c_f, bad_f, st_f, steps_f,
+                                            _) = res.values()
+    done = ~bad_g & ~bad_f
+    keep = torch.arange(ev_g.shape[1], device=ev_g.device)[None, :] < c_g[:, None]
+    same = (torch.equal(c_g[done], c_f[done])
+            and torch.equal(st_g[done], st_f[done])
+            and torch.equal(torch.where(keep, ev_g, 0)[done],
+                            torch.where(keep, ev_f, 0)[done]))
+    if not same or bool((bad_f & ~bad_g).any()) or bool(
+            (steps_f[done] > steps_g[done]).any()):
+        raise RuntimeError(f"{label}: K1's full form differs from its "
+                           "general form on a lane both finish, or takes "
+                           "more steps")
+    g1, _ = cuda_ms(lambda: kt.transduce_general(*args), n=n, warmup=2)
+    f1, _ = cuda_ms(lambda: kt.transduce(*args), n=n, warmup=2)
+    f2, _ = cuda_ms(lambda: kt.transduce(*args), n=n, warmup=2)
+    g2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=n, warmup=2)
+    n_chars = max(int(lengths.long().sum()), 1)
+    out = {"B": int(meta.shape[0]), "L": int(meta.shape[1]),
+           "lanes_done_in_both": int(done.sum()), "turns_ms": [g1, f1, f2, g2]}
+    for form, ms in (("general", (g1 + g2) / 2), ("full", (f1 + f2) / 2)):
+        r = res[form]
+        kern = k1_kernel(int(meta.shape[0]), chip["n_sm"], form)
+        instr = chip["step_instr"][kern]
+        words = tb.state_bits.numel() if form == "full" else 0
+        bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
+            args[1:5], r, n_states, instr, chip["n_sm"], chip["clock_hz"],
+            words)
+        # K1's time follows each warp's slowest lane (32 lanes a warp)
+        lane = r[4].long()
+        pad = (-lane.numel()) % 32
+        warp = torch.cat([lane, lane.new_zeros(pad)]).view(-1, 32).amax(1)
+        out[form] = {"ms": ms, "steps": n_steps,
+                     "steps_per_char": n_steps / n_chars,
+                     "warp_max_steps_mean": float(warp.float().mean()),
+                     "max_lane_steps": int(lane.max()),
+                     "bad_lanes": int(r[2].sum()), "kernel": kern,
+                     "step_instr": instr, "bound_ms": bound, "bound_by": by,
+                     "bytes": n_b, "bytes_ms": b_ms, "instr_ms": ops_ms}
+        print(f"{label}: K1 {form} form: {n_steps} steps, "
+              f"{n_steps / n_chars:.4f} steps/char, a warp's slowest lane "
+              f"{out[form]['warp_max_steps_mean']:.1f} steps on average, the "
+              f"slowest {out[form]['max_lane_steps']}, {instr} instructions a "
+              f"step ({kern}); bound {bound:.4f} ms by {by} (instructions "
+              f"{ops_ms:.4f} ms, bytes {n_b} = {b_ms:.4f} ms); mean "
+              f"{ms:.4f} ms, {ms / bound:.2f}x its bound [{card}]",
+              flush=True)
+    print(f"{label}: K1 in turns, B={out['B']} x L={out['L']}, general / "
+          f"full / full / general: {g1:.4f} / {f1:.4f} / {f2:.4f} / "
+          f"{g2:.4f} ms (means of {n}); equal on the {out['lanes_done_in_both']}"
+          f" lanes both finish; full / general "
+          f"{out['full']['ms'] / out['general']['ms']:.3f} [{card}]",
+          flush=True)
+    return out
 
 
 def to_cuda(meta, lengths, entries=None, stops=None):
@@ -294,7 +380,7 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
     torch.cuda.synchronize()
     eng.reset_cold()
-    kt.transduce.launches = 0
+    kt.transduce.launches = kt.transduce_general.launches = 0
     t0 = time.perf_counter()
     evs = eng.events_batch(texts, as_arrays=True)
     counts = np.array([len(e) for e in evs], dtype=np.int32)
@@ -309,6 +395,8 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     launches = kt.transduce.launches
     if launches < 1:
         raise RuntimeError("the main path did not launch K1")
+    if kt.transduce_general.launches:
+        raise RuntimeError("the main path launched K1's general form")
     if not out:
         raise RuntimeError("the main path formatted no output")
     print(f"{label}: main path {n_bytes / wall / 1e6:.2f} MB/s "
@@ -365,7 +453,7 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     step_instr = chip["step_instr"][kern]
     bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
         args[1:5], res, int(seen.sum()), step_instr, chip["n_sm"],
-        chip["clock_hz"])
+        chip["clock_hz"], eng.tables.state_bits.numel())
     print(f"{label}: K1 in turns on the wave, hot_size=0 / auto "
           f"({eng_hot.hot_size}) / auto / 0: {z1:.4f} / {h1:.4f} / "
           f"{h2:.4f} / {z2:.4f} ms (means of 10); cold share of the auto "
@@ -386,7 +474,9 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     print(f"{label}: K1 in turns with one text on every lane, hot_size=0 /"
           f" auto / auto / 0: {u1:.4f} / {uh1:.4f} / {uh2:.4f} / {u2:.4f} "
           f"ms (means of 10) [{card}]", flush=True)
+    forms = form_turns(args, label, chip, card, int(seen.sum()))
     return {"launches": launches, "err": err, "ms": ms, "evs": evs,
+            "forms": forms, "seen": int(seen.sum()),
             "ms_auto": (h1 + h2) / 2, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": by, "cold_share": share,
             "ms_same_text": (u1 + u2) / 2, "ms_same_text_auto": (uh1 + uh2) / 2}
@@ -869,7 +959,19 @@ def profile_overlap(run, n_bytes, card):
           f"idle {100 * (1 - device_s / wall):.1f}% [{card}]", flush=True)
 
 
-def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
+def states_read(tok, meta, lengths):
+    """How many states' rows a walk of each lane's meta reads (the
+    native census), for K1's bound."""
+    from datok_tpu_torch.utils.native import native_state_census
+
+    meta, lengths = meta.cpu().numpy(), lengths.cpu().numpy()
+    seen = np.zeros(tok.state_count + 1, dtype=bool)
+    for i in range(len(lengths)):
+        seen |= native_state_census(tok, meta[i, : lengths[i]])[0] > 0
+    return int(seen.sum())
+
+
+def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7, chip,
                   profile=False):
     """Phase 8: (a) the phase-4 wave's texts as one stream of documents
     ending in ``\\x04\\n``, through ``tokenize_stream_pipelined`` (lanes=8192,
@@ -878,9 +980,10 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
     output must equal the native oracle.  Then, untimed, (a) with the
     defaults on ``eng_hot``, whose first wave, as the pipeline launched
     it, runs through K1 with no hot set and with ``eng_hot``'s in turns.
-    Returns K1's launches in the timed runs, the hot set's cold share
-    of the untimed run, the wave's K1 times and stream (a) with its
-    oracle output."""
+    That wave also runs through K1's general and full forms in turns
+    (:func:`form_turns`).  Returns K1's launches in the timed runs, the
+    hot set's cold share of the untimed run, the wave's K1 times and
+    stream (a) with its oracle output."""
     from datok_tpu_torch.runtime import engine as engine_mod
     tok = eng.tok
     t0 = time.perf_counter()
@@ -953,8 +1056,11 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7,
           f"L={L}, hot_size=0 / auto / auto / 0: {z1:.4f} / {h1:.4f} / "
           f"{h2:.4f} / {z2:.4f} ms (means of 10); cold share of the launch "
           f"{share:.6f} [{card}]", flush=True)
+    _, meta8, lengths8 = waves[0][:3]
+    forms = form_turns((eng.tables, *waves[0][1:]), "overlap (a)'s first wave",
+                       chip, card, states_read(tok, meta8, lengths8))
     wave8 = {"B": int(B), "L": int(L), "ms": (z1 + z2) / 2,
-             "ms_auto": (h1 + h2) / 2, "cold_share": share}
+             "ms_auto": (h1 + h2) / 2, "cold_share": share, "forms": forms}
     if profile:
         from datok_tpu_torch.runtime import pipeline as P
 
@@ -1427,7 +1533,7 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"build: {spec.name}:", line.strip(), flush=True)
     # the fewest instructions one pass of K1's step loop issues, for
-    # each of its two instantiations, and what the bound needs of the card
+    # each of its instantiations, and what the bound needs of the card
     listing = sass.cuobjdump(build.TRANSDUCE.path)
     chip = {"n_sm": torch.cuda.get_device_properties(0).multi_processor_count,
             "clock_hz": 1e6 * float(subprocess.run(
@@ -1435,7 +1541,7 @@ def main():
                  "--format=csv,noheader,nounits"], check=True,
                 capture_output=True, text=True).stdout.split()[0]),
             "step_instr": {}}
-    for kern in ("transduce_kernelILi256E", "transduce_kernelILi1024E"):
+    for kern in k1_instances():
         fewest, static = sass.loop_min_instructions(listing, kern)
         chip["step_instr"][kern] = fewest
         print(f"build: transduce: {kern}: step loop {static} instructions, "
@@ -1466,11 +1572,15 @@ def main():
     rest3 = (*to_cuda(meta3, lengths3, entries3, stops3), max_steps3)
     err3 = 0
     for e in (eng_hot, eng):
-        err3 = max(err3, max_abs_err(kt.transduce(e.tables, *rest3),
-                                     run_machine(e.tables, *rest3)))
-        if err3 != 0:
-            raise RuntimeError(f"K1 with hot set {e.hot_size} differs from "
-                               f"the plain machine (max abs err {err3})")
+        for k1_form, form in ((kt.transduce, "full"),
+                              (kt.transduce_general, "general")):
+            err3 = max(err3, max_abs_err(
+                k1_form(e.tables, *rest3),
+                run_machine(e.tables, *rest3, form=form)))
+            if err3 != 0:
+                raise RuntimeError(
+                    f"K1's {form} form with hot set {e.hot_size} differs "
+                    f"from the plain machine's (max abs err {err3})")
     args3 = (eng.tables, *rest3)
     # in turns: plain, kernel, kernel, plain (K1 turns: mean of 10)
     p1, _ = cuda_ms(lambda: run_machine(*args3))
@@ -1478,9 +1588,9 @@ def main():
     k2, _ = cuda_ms(lambda: kt.transduce(*args3), n=10, warmup=2)
     p2, _ = cuda_ms(lambda: run_machine(*args3))
     print(f"kernel vs plain: B={B3} x L={L3}, hot sets {eng_hot.hot_size} "
-          f"and 0, events/counts/bad/state/steps/cold equal (max abs err "
-          f"{err3}); without a hot set K1 {k1:.3f} / {k2:.3f} ms, plain "
-          f"{p1:.3f} / {p2:.3f} ms [{card}]", flush=True)
+          f"and 0, full and general forms, events/counts/bad/state/steps/"
+          f"cold equal (max abs err {err3}); without a hot set K1 {k1:.3f} "
+          f"/ {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms [{card}]", flush=True)
 
     # 4. main path at real size
     texts = wave_texts(tok, *WAVE_SHAPE, synth_text)
@@ -1509,7 +1619,7 @@ def main():
 
     # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
     launches8, cold8, wave8, stream8 = overlap_phase(
-        dtt, kt, eng, eng_hot, card, texts, stream7, opts.profile)
+        dtt, kt, eng, eng_hot, card, texts, stream7, chip, opts.profile)
 
     # 9. the corpus runner and the CLI
     corpus9 = corpus_phase(dtt, kt, eng, card, texts)
@@ -1552,6 +1662,8 @@ def main():
         "cold_share": cold,
         "ms_same_text": w4["ms_same_text"],
         "ms_same_text_auto": w4["ms_same_text_auto"],
+        "forms": {"phase4": w4["forms"], "phase8": wave8["forms"]},
+        "step_instr": chip["step_instr"],
         "phase8_wave": wave8,
         "phase10": shard10,
     }] + probes}), flush=True)

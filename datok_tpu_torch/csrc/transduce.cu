@@ -10,13 +10,31 @@
 // steps and cold-entry injection have no counterpart, since a Hopper
 // thread can read any cell of the table itself.
 //
-// What bounds it on this card: each step is a chain of the state's ε
-// and transition cells, whose loads wait for the step before, and
-// integer selects, so a lane is latency bound, and the wave's lanes are
-// the only parallelism (B = 32768 gives 8 warps an SM).  Measured,
-// the instructions of the step set the time, not where the cells come
-// from: the L1 already holds the hot rows when shared memory is free
-// (PERF.md).  The design:
+// K1 runs the full step (transduce_step.cuh): the TPU kernel's run
+// skip and fused boundaries are part of it, so a step may take a run
+// of letters or a whole token boundary.  The general form is compiled
+// beside it for comparisons (the tests' host build, the smoke run's
+// turns); the engine launches only the full form.
+//
+// What bounds it on this card: each step is a chain of the state's
+// cells, whose loads wait for the step before, and integer selects, so
+// a lane is latency bound, and the wave's lanes are the only
+// parallelism (B = 32768 gives 8 warps an SM); a warp takes as many
+// steps as its slowest lane.  The full form cuts the steps a character
+// by two fifths at a quarter more instructions a step; measured, K1
+// runs at about four times its instruction bound, and where the cells
+// come from matters less than the loads a step waits on (PERF.md).
+// The design:
+// - the full form's per-state words (runtime/rep.py:state_table,
+//   73.6 KB at 18,405 states) are read from device memory through L1,
+//   so the ε probe and the skip and fuse gates are one load on the
+//   state, mostly an L1 hit.  Staged into shared memory at block start
+//   they measured 2-4% slower on an H100 (PERF.md): they take
+//   that much of the SM's L1, which holds the table's and the meta's
+//   lines;
+// - the consume cell from the ε target, which a fused boundary needs,
+//   is loaded beside the transition cell, not after it, and the next
+//   meta word after both (the skip gate decides its address);
 // - with a hot set (runtime/hot.py; the engine keeps none by default,
 //   since it made K1 slower on mixed text) the hot states' rows are
 //   staged into shared memory at block start, 16 bytes a thread at a
@@ -25,11 +43,12 @@
 // - tagged cells tell the lane whether its next state is hot without a
 //   lookup;
 // - each lane reads its own row of the (B, L) meta, one word a step
-//   ahead of its use, whose lines stay in L1 while the lane walks them,
-//   so no transpose runs before the launch;
-// - one block per SM (the hot rows take the SM's shared memory), with
-//   ceil(B / SMs) lanes a block rounded up to a warp, so every SM gets
-//   lanes; a thread loops over lanes when B exceeds 1024 a block.
+//   ahead of its use (past a skipped run when it skips), whose lines
+//   stay in L1 while the lane walks them, so no transpose runs before
+//   the launch;
+// - one block per SM (the hot rows take the SM's shared memory),
+//   with ceil(B / SMs) lanes a block rounded up to a warp, so every SM
+//   gets lanes; a thread loops over lanes when B exceeds 1024 a block.
 //
 // Events go per lane, in step order, to row ``lane`` of a (B, E)
 // buffer with E = max_steps: a lane emits at most one event per step,
@@ -54,7 +73,8 @@ struct Outs {
   unsigned long long *cold, *cold_total;
 };
 
-template <int kThreads>
+// ``kFull`` picks the step's form.
+template <int kThreads, bool kFull>
 __global__ void __launch_bounds__(kThreads, 1)
 transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
                  int32_t n_hot_quads, const int32_t* __restrict__ meta,
@@ -76,11 +96,11 @@ transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
   unsigned long long cold = 0, steps = 0;
   for (int32_t lane = blockIdx.x * blockDim.x + threadIdx.x; lane < B;
        lane += gridDim.x * blockDim.x) {
-    cold += dt::run_lane(m, meta + (int64_t)lane * L, L, lengths[lane],
-                         entries[lane], stops[lane] != 0, max_steps,
-                         o.events + (int64_t)lane * max_steps,
-                         o.counts + lane, o.bad + lane,
-                         o.state + (int64_t)lane * 6, o.steps + lane);
+    cold += dt::run_lane<kFull>(
+        m, meta + (int64_t)lane * L, L, lengths[lane], entries[lane],
+        stops[lane] != 0, max_steps, o.events + (int64_t)lane * max_steps,
+        o.counts + lane, o.bad + lane, o.state + (int64_t)lane * 6,
+        o.steps + lane);
     steps += o.steps[lane];
   }
   for (int d = 16; d > 0; d >>= 1) {
@@ -102,40 +122,60 @@ transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
   }
 }
 
-template <int kThreads>
+template <int kThreads, bool kFull>
 cudaError_t launch(int grid, int threads, size_t smem, cudaStream_t stream,
                    const dt::Model& m, const uint4* hot_rows,
                    int32_t n_hot_quads, const int32_t* meta, int32_t L,
                    int32_t B, const int32_t* lengths, const int32_t* entries,
                    const uint8_t* stops, int32_t max_steps, const Outs& o) {
+  auto kernel = transduce_kernel<kThreads, kFull>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        transduce_kernel<kThreads>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  transduce_kernel<kThreads><<<grid, threads, smem, stream>>>(
-      m, hot_rows, n_hot_quads, meta, L, B, lengths, entries, stops,
-      max_steps, o);
+  kernel<<<grid, threads, smem, stream>>>(m, hot_rows, n_hot_quads, meta, L,
+                                          B, lengths, entries, stops,
+                                          max_steps, o);
   return cudaGetLastError();
+}
+
+template <int kThreads>
+cudaError_t launch_form(bool full, int grid, int threads, size_t smem,
+                        cudaStream_t stream, const dt::Model& m,
+                        const uint4* hot_rows, int32_t n_hot_quads,
+                        const int32_t* meta, int32_t L, int32_t B,
+                        const int32_t* lengths, const int32_t* entries,
+                        const uint8_t* stops, int32_t max_steps,
+                        const Outs& o) {
+  if (full)
+    return launch<kThreads, true>(grid, threads, smem, stream, m, hot_rows,
+                                  n_hot_quads, meta, L, B, lengths, entries,
+                                  stops, max_steps, o);
+  return launch<kThreads, false>(grid, threads, smem, stream, m, hot_rows,
+                                 n_hot_quads, meta, L, B, lengths, entries,
+                                 stops, max_steps, o);
 }
 
 }  // namespace
 
 // Launches K1 on ``stream``; returns a CUDA error code (0 = launched).
 // ``hot_rows`` holds ``n_hot`` cells (a multiple of 4, 0 without a hot
-// set), ``meta`` is (B, L), ``cold`` two int64; ``n_cells`` < 2^31.
+// set), ``st`` the ``n_st`` per-state words, ``full`` picks the full
+// form (1) or the general one (0), ``meta`` is (B, L), ``cold`` two
+// int64; ``n_cells`` < 2^31.
 extern "C" int dt_transduce_launch(
     const uint32_t* table, int64_t n_cells, int32_t S, int32_t max_sym,
     int32_t eps, int32_t unknown, int32_t identity, const uint32_t* hot_rows,
     int32_t n_hot, const int32_t* hot_of, int32_t n_hot_of, int32_t root_h,
-    uint32_t tag_mask, const int32_t* meta, int32_t L, int32_t B,
+    uint32_t tag_mask, const int32_t* st, int32_t n_st, int32_t full,
+    const int32_t* meta, int32_t L, int32_t B,
     const int32_t* lengths, const int32_t* entries, const uint8_t* stops,
     int32_t max_steps, int32_t* events, int32_t* counts, uint8_t* bad,
     int32_t* state, int32_t* steps, int64_t* cold, int64_t* cold_total,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), st);
+  cudaStream_t strm = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), strm);
   if (e != cudaSuccess || B <= 0) return (int)e;
   int dev = 0, n_sm = 0;
   e = cudaGetDevice(&dev);
@@ -147,8 +187,8 @@ extern "C" int dt_transduce_launch(
   if (threads > kMaxThreads) threads = kMaxThreads;
   int grid = (B + threads - 1) / threads;
   if (grid > n_sm) grid = n_sm;
-  dt::Model m{table, hot_rows, hot_of, (int32_t)n_cells, S, max_sym, eps,
-              unknown, identity, n_hot_of, root_h, tag_mask};
+  dt::Model m{table, hot_rows, hot_of, st, n_st, (int32_t)n_cells, S,
+              max_sym, eps, unknown, identity, n_hot_of, root_h, tag_mask};
   Outs o{events, counts, state, steps, bad,
          reinterpret_cast<unsigned long long*>(cold),
          reinterpret_cast<unsigned long long*>(cold_total)};
@@ -156,10 +196,12 @@ extern "C" int dt_transduce_launch(
   int32_t quads = n_hot / 4;
   size_t smem = (size_t)quads * sizeof(uint4);
   if (threads <= kSmallThreads)
-    e = launch<kSmallThreads>(grid, threads, smem, st, m, rows, quads, meta,
-                              L, B, lengths, entries, stops, max_steps, o);
+    e = launch_form<kSmallThreads>(full != 0, grid, threads, smem, strm, m,
+                                   rows, quads, meta, L, B, lengths, entries,
+                                   stops, max_steps, o);
   else
-    e = launch<kMaxThreads>(grid, threads, smem, st, m, rows, quads, meta, L,
-                            B, lengths, entries, stops, max_steps, o);
+    e = launch_form<kMaxThreads>(full != 0, grid, threads, smem, strm, m,
+                                 rows, quads, meta, L, B, lengths, entries,
+                                 stops, max_steps, o);
   return (int)e;
 }

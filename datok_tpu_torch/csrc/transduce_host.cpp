@@ -13,20 +13,21 @@ extern "C" int dt_transduce_host(
     const uint32_t* table, int64_t n_cells, int32_t S, int32_t max_sym,
     int32_t eps, int32_t unknown, int32_t identity, const uint32_t* hot_rows,
     int32_t n_hot, const int32_t* hot_of, int32_t n_hot_of, int32_t root_h,
-    uint32_t tag_mask, const int32_t* meta, int32_t L, int32_t B,
+    uint32_t tag_mask, const int32_t* st, int32_t n_st, int32_t full,
+    const int32_t* meta, int32_t L, int32_t B,
     const int32_t* lengths, const int32_t* entries, const uint8_t* stops,
     int32_t max_steps, int32_t* events, int32_t* counts, uint8_t* bad,
     int32_t* state, int32_t* steps, int64_t* cold, int64_t* cold_total) {
   (void)n_hot;
-  dt::Model m{table, hot_rows, hot_of, (int32_t)n_cells, S, max_sym, eps,
-              unknown, identity, n_hot_of, root_h, tag_mask};
+  dt::Model m{table, hot_rows, hot_of, st, n_st, (int32_t)n_cells, S,
+              max_sym, eps, unknown, identity, n_hot_of, root_h, tag_mask};
+  auto run = full ? dt::run_lane<true> : dt::run_lane<false>;
   int64_t n_cold = 0, n_steps = 0;
   for (int32_t lane = 0; lane < B; ++lane) {
-    n_cold += dt::run_lane(m, meta + (int64_t)lane * L, L, lengths[lane],
-                           entries[lane], stops[lane] != 0, max_steps,
-                           events + (int64_t)lane * max_steps, counts + lane,
-                           bad + lane, state + (int64_t)lane * 6,
-                           steps + lane);
+    n_cold += run(m, meta + (int64_t)lane * L, L, lengths[lane],
+                  entries[lane], stops[lane] != 0, max_steps,
+                  events + (int64_t)lane * max_steps, counts + lane,
+                  bad + lane, state + (int64_t)lane * 6, steps + lane);
     n_steps += steps[lane];
   }
   cold[0] = n_cold;

@@ -1,10 +1,23 @@
 // One lane of the reference transduce loop (matrix.go:383-697), as a
 // scalar state machine.  Single C++ source of the step semantics for
 // the CUDA kernel (transduce.cu) and its host build (transduce_host.cpp,
-// for tests).  It transcribes the general-machine path of
-// datok_tpu/runtime/jax_engine.py:_make_step (:230-602; no fused
-// boundaries, no run skip): each predicate below is one of that
-// function's disjoint masks, and the comments name them.
+// for tests).  It transcribes datok_tpu/runtime/jax_engine.py:_make_step
+// (:230-602) in two forms, a template argument of ``step``:
+// - the full form (kFull), the step the TPU kernel runs
+//   (pallas_engine.py:536, enable_skip=True, with the fused entries of
+//   :502-516): a letter-absorbing state takes a whole run of the skip
+//   class in one step (run skip, jax_engine.py:325-340), and "no arc,
+//   backtrack, ε flush, re-read consume" is one step (a fused boundary,
+//   :367-391, 509-548; a sentence end where no token is pending).  The
+//   engine always launches it;
+// - the general form, one character or one backtrack a step, which
+//   the tests and the smoke run's turns compare it with.
+// Each predicate below is one of _make_step's disjoint masks, and the
+// comments name them.  The full form's gates are the JAX kernel's.  It
+// fuses every composition they let through, where the TPU kernel fuses
+// only those whose final target is in its hot set, so it may take fewer
+// steps; its events and exit rows are the same.  Where the TPU kernel
+// keeps the lazy TAG_EPSOF sentinel, the lane holds the ε target.
 //
 // Where a lane's data comes from:
 // - table cells: a state of the hot set (runtime/hot.py) reads its row
@@ -13,16 +26,22 @@
 //   bits 20..29 of a nonzero cell are the target's hot index + 1, so
 //   the lane always knows whether its next state is hot (``h``).
 //   Clearing the tag gives the original cell: every fetch is exact.
+//   The full form reads the consume from the ε target from the whole
+//   table, and the ε target's hot index from ``Model::hot_of``.
+// - the full form's per-state word (runtime/rep.py:state_table): the ε
+//   target where a boundary fuses, ε available at the state and at
+//   that target, and letter-absorbing, read through L1.  It is also the
+//   full form's ε probe.
 // - meta: the lane's own row of the (B, L) meta array.  A lane keeps
 //   the word at its cursor in a register (``Lane::mv``), and each step
-//   loads the next word before it needs it: a step that moves on by one
-//   character finds the symbol of the next already loaded, so the meta
-//   load is off the step's dependent chain.  Only a jump (a backtrack,
-//   a forced bump) loads the word at the new cursor.  Consecutive reads
-//   of a lane hit the same 128-byte line, which stays in L1.  A register
-//   window of 16-byte loads was slower on an H100: the lanes of a warp
-//   refill it at different steps, so the warp runs the refill branch on
-//   most steps (PERF.md).
+//   loads the word where the cursor goes next before it needs it: one
+//   character on, or past the run a skip takes (its length is in the
+//   word held), so the meta load is off the step's dependent chain.
+//   Only a jump (a backtrack, a forced bump) loads the word at the new
+//   cursor.  Consecutive reads of a lane hit the same 128-byte line,
+//   which stays in L1.  A register window of 16-byte loads was slower
+//   on an H100: the lanes of a warp refill it at different steps, so
+//   the warp runs the refill branch on most steps (PERF.md).
 #pragma once
 
 #include <stdint.h>
@@ -40,6 +59,14 @@ constexpr int32_t META_A_MASK = 0xFFFF;
 constexpr int32_t META_FOUND = 1 << 16;
 constexpr int32_t META_NONASCII = 1 << 17;
 constexpr int32_t META_EOT = 1 << 18;
+// bits 19..23: length (capped at 31) of the skip-class run at this position
+constexpr int META_RUN_SHIFT = 19;
+constexpr int32_t META_RUN_MASK = 0x1F;
+// the per-state word of the full form (runtime/rep.py)
+constexpr int32_t ST_EPS_TGT = (1 << 28) - 1;
+constexpr int32_t ST_EPS = 1 << 28;
+constexpr int32_t ST_EPS_AT_TGT = 1 << 29;
+constexpr int32_t ST_LC = 1 << 30;
 // events (runtime/events.py), packed kind | start<<2 | end<<17
 constexpr uint32_t EV_TOKEN = 1, EV_SENT = 2, EV_TEXT = 3;
 constexpr int PACK_POS_BITS = 15;
@@ -55,6 +82,8 @@ struct Model {
   const uint32_t* table;  // the whole table; tagged when tag_mask != 0
   const uint32_t* hot;    // hot rows: cell (h-1)*max_sym + (a-1)
   const int32_t* hot_of;  // (n_hot_of,) hot index + 1 per state, 0 = cold
+  const int32_t* st;      // (n_st,) per-state words (the full form)
+  int32_t n_st;
   int32_t n_cells;
   int32_t S, max_sym, eps, unknown, identity;
   int32_t n_hot_of, root_h;
@@ -84,20 +113,28 @@ DT_HD uint32_t cell(const Model& m, int64_t idx) {
   return (idx >= 0 && idx < m.n_cells) ? m.table[idx] : 0u;
 }
 
-// The cell of the state t with hot index + 1 ``h`` on symbol a
-// (1 <= a <= max_sym): from the hot rows when t is hot.  A state is
-// below 2^28 (entry contexts keep 28 bits), so the unsigned index
-// cannot wrap.
-DT_HD uint32_t row_cell(const Model& m, int32_t h, int32_t t, int32_t a) {
-  if (h > 0) return m.hot[(h - 1) * m.max_sym + (a - 1)];
+// The cell of state t on symbol a (1 <= a <= max_sym) from the whole
+// table (cell_at), or from the hot rows when t is hot (row_cell, ``h``
+// its hot index + 1).  A state is below 2^28 (entry contexts keep 28
+// bits), so the unsigned index cannot wrap.
+DT_HD uint32_t cell_at(const Model& m, int32_t t, int32_t a) {
   uint32_t idx = (uint32_t)(a - 1) * (uint32_t)m.S + (uint32_t)t;
   return idx < (uint32_t)m.n_cells ? m.table[idx] : 0u;
+}
+
+DT_HD uint32_t row_cell(const Model& m, int32_t h, int32_t t, int32_t a) {
+  return h > 0 ? m.hot[(h - 1) * m.max_sym + (a - 1)] : cell_at(m, t, a);
 }
 
 // The ε cell of state t: nonzero when a token bound is available.
 DT_HD uint32_t eps_cell(const Model& m, int32_t h, int32_t t) {
   if (m.eps >= 1 && m.eps <= m.max_sym) return row_cell(m, h, t, m.eps);
   return cell(m, (int64_t)(m.eps - 1) * m.S + t);
+}
+
+// The per-state word of state t; 0 (no ε, not absorbing) outside 0..S.
+DT_HD int32_t state_word(const Model& m, int32_t t) {
+  return ((uint32_t)t < (uint32_t)m.n_st) ? m.st[t] : 0;
 }
 
 DT_HD int32_t hot_index(const Model& m, int32_t t) {
@@ -145,7 +182,8 @@ DT_HD bool live(const Lane& s) { return !s.done || s.pend != 0; }
 // whose lanes all read the same text the branches win (PERF.md).
 // ``row`` is the lane's meta row of ``L`` words (positions are clipped
 // to [0, L-1]).  A step that reads the row of a cold state counts in
-// ``n_cold``.
+// ``n_cold``.  ``kFull`` picks the form (the header above).
+template <bool kFull>
 DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   // m_drain: a lane with queued events drains one and does nothing else
   const bool drain = s.pend != 0;
@@ -160,10 +198,14 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   // otherwise (the ε probe and the transition of m_read share it)
   s.n_cold += ((new0 && !cut) || old) && (new0 ? s.h : s.h0) == 0;
 
-  // the symbol, and the next word loaded ahead; stale ok: only the
-  // non-ASCII path reassigns it (matrix.go:426-434)
+  // the symbol; stale ok: only the non-ASCII path reassigns it
+  // (matrix.go:426-434).  The state's word (full form) and the cells
+  // are loaded before anything waits on them.
   const int32_t mv = s.mv;
-  const int32_t mv_next = meta_at(row, s.c + 1, L);
+  const int32_t word = kFull ? state_word(m, s.t) : 0;
+  // the word where the cursor goes next, loaded ahead: the general form
+  // moves on by one character at most, so its load goes first
+  int32_t mv_next = kFull ? 0 : meta_at(row, s.c + 1, L);
   if (read) {
     if (mv & META_NONASCII) s.ok = (mv & META_FOUND) != 0;
     s.a = mv & META_A_MASK;
@@ -171,19 +213,42 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
     s.t0 = s.t;
     s.h0 = s.h;
   }
-  // the ε probe (read) and the epilogue's chase share one cell of t;
-  // the transition cell comes from the same row on a read
-  const bool eps_here = eps_cell(m, s.h, s.t) != 0;
-  const uint32_t traw =
-      (s.a > 0 && s.a <= m.max_sym) ? row_cell(m, s.h0, s.t0, s.a) : 0u;
+  // the ε probe (read) and the epilogue's chase share one predicate on
+  // t; the transition cell comes from the same row on a read
+  const bool eps_here =
+      kFull ? (word & ST_EPS) != 0 : eps_cell(m, s.h, s.t) != 0;
+  const bool a_in = s.a > 0 && s.a <= m.max_sym;
+  const uint32_t traw = a_in ? row_cell(m, s.h0, s.t0, s.a) : 0u;
+  // the fused boundary (m_bf, m_bs): no arc at t, an ε arc to e whose
+  // row takes a; the gates keep EOT and the stale-ok identity retry
+  // (f1) on the slow path.  The consume cell from e is loaded beside
+  // the transition cell, off its chain.
+  const int32_t e = word & ST_EPS_TGT;
+  const uint32_t fraw =
+      (kFull && read && e != 0 && a_in) ? cell_at(m, e, s.a) : 0u;
+  // m_skip: a letter-absorbing state takes the skip-class run at c
+  // (length rl) in one step; the leading-nontoken drop applies only to
+  // the first pending character, which the gate excludes
+  const int32_t rl = (mv >> META_RUN_SHIFT) & META_RUN_MASK;
+  const bool skip = kFull && read && (word & ST_LC) && rl >= 2 &&
+                    s.c - s.b - s.ft >= 1;
+  // the full form's next word, once the cell loads are on their way and
+  // the skip gate is known: one load, at c + 1 or past the run
+  if (kFull) mv_next = meta_at(row, s.c + (skip ? rl : 1), L);
+  const bool bb = kFull && read && !skip && traw == 0 && fraw != 0 &&
+                  s.a != m.eps && !s.eot && (s.ok || s.a != m.identity);
+  const bool has_pending = s.c - s.b > s.ft;
+  const bool bf = bb && has_pending;  // m_bf: flush the pending token
+  const bool bs = bb && !has_pending;  // m_bs: the ε ends a sentence
   if (read && eps_here) {  // save the backtrack register
     s.eps_s = s.t;
     s.eps_h = s.h;
-    s.eps_o = s.c;
+    // a skipped run probes at each of its characters: keep the last
+    s.eps_o = skip ? s.c + rl - 1 : s.c;
   }
 
   // transition outcome; f2 reads the post-probe backtrack register
-  const bool trans = read || old;
+  const bool trans = (read && !skip && !bb) || old;
   const bool fail = trans && traw == 0;
   const bool f1 = fail && !s.ok && s.a == m.identity;  // retry unknown
   const bool f2 = fail && !f1 && s.a != m.eps && s.eps_s != 0;  // ε back
@@ -193,7 +258,6 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   const int32_t t_succ = (int32_t)(traw & ~m.tag_mask & 0x7FFFFFFFu);
   const int32_t h_succ = (int32_t)((traw & m.tag_mask) >> HOT_SHIFT);
   const bool is_eps = s.a == m.eps;
-  const bool has_pending = s.c - s.b > s.ft;
   const bool flush = succ && is_eps && has_pending;
   const bool sent = succ && is_eps && !has_pending;
   const bool cons = succ && !is_eps;
@@ -219,8 +283,8 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
 
   // events, always ordered token, sentence, text: the first now, the
   // rest through the 2-deep queue (one event per step per lane)
-  const bool w_tok = flush || f3 || resid;
-  const bool w_sent = sent || sent2 || efin_sent;
+  const bool w_tok = flush || f3 || resid || bf;
+  const bool w_sent = sent || sent2 || efin_sent || bs;
   const bool w_text = e_m || efin_text;
   const int32_t v_tok = pack(EV_TOKEN, s.b + s.ft, f3 ? c_f3 : s.c);
   const int32_t sent_pos = sent2 ? c_cons : s.c;
@@ -237,10 +301,20 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   s.pend = drain ? s.pend2 : (running ? second : s.pend);
   s.pend2 = drain ? 0 : (running ? third : s.pend2);
 
-  // register updates (the paths are disjoint)
+  // register updates (the paths are disjoint).  The fused step ends
+  // where the three steps it stands for end: the token (or sentence
+  // end) emitted above, a rewind to c (m_bf), the consume to c + 1 with
+  // the leading-nontoken drop, the backtrack register at e where ε is
+  // available there, the checkpoint e's context with both flags clear.
   const bool back = f2 || ebt;
-  const int32_t t_new = f3 ? ROOT : (succ ? t_succ : s.t);
-  const int32_t h_new = f3 ? m.root_h : (succ ? h_succ : s.h);
+  const bool f_nontok = (fraw & FIRSTBIT) != 0;
+  const bool avail_e = (word & ST_EPS_AT_TGT) != 0;
+  const int32_t t_new =
+      bb ? (int32_t)(fraw & ~m.tag_mask & 0x7FFFFFFFu)
+         : (f3 ? ROOT : (succ ? t_succ : s.t));
+  const int32_t h_new =
+      bb ? (int32_t)((fraw & m.tag_mask) >> HOT_SHIFT)
+         : (f3 ? m.root_h : (succ ? h_succ : s.h));
   if (back) {
     s.t0 = s.eps_s;
     s.h0 = s.eps_h;
@@ -250,26 +324,36 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   }
   s.a = f1 ? m.unknown : ((back || f3 || echase) ? m.eps : s.a);
   const int32_t c_new =
-      back ? s.eps_o : (f3 ? c_f3 : (succ ? c_cons : s.c));
-  s.b = f3 ? c_f3 : (rew ? c_cons : s.b);
-  s.ft = (f3 || rew) ? 0 : (lead ? s.ft + 1 : s.ft);
+      skip ? s.c + rl
+           : (bb ? s.c + 1
+                 : (back ? s.eps_o : (f3 ? c_f3 : (succ ? c_cons : s.c))));
+  s.b = bf ? s.c : (f3 ? c_f3 : (rew ? c_cons : s.b));
+  s.ft = bf ? (int32_t)f_nontok
+            : (bs ? s.ft + f_nontok
+                  : ((f3 || rew) ? 0 : (lead ? s.ft + 1 : s.ft)));
   if (back || f3 || rew) s.eps_s = 0;
   if (rew) s.eps_o = 0;
-  s.newchar = !(f1 || back || echase) && (f3 || succ || s.newchar);
+  if (bb) {
+    s.eps_s = avail_e ? e : 0;
+    s.eps_h = avail_e ? hot_index(m, e) : 0;
+    s.eps_o = s.c;
+  }
+  s.newchar = bb || (!(f1 || back || echase) && (f3 || succ || s.newchar));
   s.eot = !(f1 || f2 || succ) && s.eot;
-  s.sflag = !f3 && (succ ? (sflag1 || sent2) : s.sflag);
-  s.tflag = !f3 && (succ ? (e_m || tflag1) : s.tflag);
+  s.sflag = bs || (!bf && !f3 && (succ ? (sflag1 || sent2) : s.sflag));
+  s.tflag = !bf && !f3 && (succ ? (e_m || tflag1) : s.tflag);
   s.done = s.done || efin || cut;
   // checkpoint the context at rewinds (a later segment resumes there)
   if (f3 || rew) s.ckpt = ctx_of(t_new, s.sflag, s.tflag, s.ok);
+  if (bf) s.ckpt = ctx_of(e, false, false, s.ok);
   s.t = t_new;
   s.h = h_new;
   // the word at the new cursor: kept, loaded ahead, or loaded now
   if (c_new != s.c) {
-    s.mv = c_new == s.c + 1 ? mv_next : meta_at(row, c_new, L);
+    s.mv = c_new == s.c + (skip ? rl : 1) ? mv_next : meta_at(row, c_new, L);
   }
   s.c = c_new;
-  s.n_backtrack += f2;
+  s.n_backtrack += f2 || bb;
   s.n_force += f3;
   return emit;
 }
@@ -279,6 +363,7 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
 // events in step order to ev_row (capacity max_steps: at most one event
 // per step), the count, bad, the state row (ctx, ckpt, b, c,
 // n_backtrack, n_force) and the step count.  Returns its cold steps.
+template <bool kFull>
 DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
                        int32_t length, int32_t entry, bool stop,
                        int32_t max_steps, int32_t* ev_row, int32_t* count,
@@ -287,7 +372,7 @@ DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
   init_lane(s, m, row, L, entry, length, stop);
   int32_t n = 0, k = 0;
   while (k < max_steps && live(s)) {
-    int32_t e = step(s, m, row, L);
+    int32_t e = step<kFull>(s, m, row, L);
     if (e != 0) ev_row[n++] = e;
     ++k;
   }

@@ -61,11 +61,12 @@ def _src(*names: str) -> Tuple[str, ...]:
 
 
 # table, n_cells, S, max_sym, eps, unknown, identity, hot_rows, n_hot,
-# hot_of, n_hot_of, root_h, tag_mask, meta, L, B, lengths, entries, stops,
-# max_steps, events, counts, bad, state, steps, cold, cold_total
+# hot_of, n_hot_of, root_h, tag_mask, st, n_st, full, meta, L, B, lengths,
+# entries, stops, max_steps, events, counts, bad, state, steps, cold,
+# cold_total
 _TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _p,
-                   _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _p, _p,
-                   _i32, _p, _p, _p, _p, _p, _p, _p)
+                   _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _i32,
+                   _i32, _p, _p, _p, _i32, _p, _p, _p, _p, _p, _p, _p)
 # a, h, table, W, n_planes, select, B, out
 _HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)
 # ring, R, B, planes, H, K, h0, ys, h_out
@@ -133,7 +134,8 @@ def build(spec: Lib) -> str:
     build keeps the compiler's report beside it (:attr:`Lib.log`)."""
     if _stale(spec.path, spec.sources):
         if spec.cuda:
-            log = _compile([_nvcc(), *NVCC_FLAGS], spec.sources[0], spec.path)
+            log = _compile([_nvcc(), *NVCC_FLAGS], spec.sources[0],
+                           spec.path)
             with open(spec.log, "w") as fh:
                 fh.write(log)
         else:

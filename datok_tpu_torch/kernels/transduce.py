@@ -1,14 +1,22 @@
 """Wrapper of K1, the batched transduce kernel (``csrc/transduce.cu``).
 
 ``transduce`` takes the same arguments and returns the same tensors as
-the plain machine (:func:`datok_tpu_torch.runtime.machine.run_machine`).
-Tensors on the CPU go to the plain machine; tensors on a CUDA device go
-to K1, and anything K1 does not take raises.  K1 keeps the rows of the
-tables' hot set (``tb.hot``) in shared memory; without one it reads
-every cell from the whole table.  ``out=`` takes preallocated outputs
+the plain machine (:func:`datok_tpu_torch.runtime.machine.run_machine`),
+and runs the full step (run skip and fused boundaries) as the engine
+does.  Tensors on the CPU go to the plain machine; tensors on a CUDA
+device go to K1, and anything K1 does not take raises.  K1 keeps the
+rows of the tables' hot set (``tb.hot``) in shared memory, and reads
+the per-state words (``tb.state_bits``) and every other cell from
+device memory.  ``out=`` takes preallocated outputs
 (:func:`outputs`), so that several launches, one a block of lanes, can
 write row blocks of one buffer.  ``transduce.launches`` counts K1
 launches.
+
+``transduce_general`` runs K1's general form, one character or one
+backtrack a step, the same way: it is there to compare the two forms
+(the tests, the smoke run's turns), and no engine calls it.
+``transduce_host`` runs either form of K1's step header built for the
+host (tests).
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..runtime.hot import HOT_TAG_MASK
-from ..runtime.machine import run_machine
+from ..runtime.machine import FORMS, run_machine
 from ..runtime.rep import Tables
 from . import build
 
@@ -47,6 +55,12 @@ def _check(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total):
             raise ValueError(f"{name} must be ({B},), got {tuple(x.shape)}")
     if tb.device != dev:
         raise ValueError(f"tables are on {tb.device}, meta on {dev}")
+    sb = tb.state_bits
+    if sb is not None and (sb.device != dev or sb.dtype != torch.int32
+                           or tuple(sb.shape) != (tb.S + 1,)
+                           or not sb.is_contiguous()):
+        raise ValueError(f"state_bits must be a contiguous ({tb.S + 1},) "
+                         f"int32 tensor on {dev}")
     if cold_total is not None and (cold_total.device != dev
                                    or cold_total.dtype != torch.int64
                                    or tuple(cold_total.shape) != (2,)):
@@ -84,7 +98,7 @@ def _check_out(out, B: int, max_steps: int, dev):
 
 
 def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
-          cold_total):
+          cold_total, full: bool):
     hot = tb.hot
     if hot is None:
         (table,) = tb.arrays
@@ -94,42 +108,40 @@ def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
         hot_args = [hot.rows.data_ptr(), hot.rows.numel(),
                     hot.hot_of.data_ptr(), hot.hot_of.numel(), hot.root_h,
                     HOT_TAG_MASK]
+    sb = tb.state_bits
+    if sb is None:
+        raise ValueError("K1 needs the tables' per-state words "
+                         "(tables_from_tokenizer of a matrix model)")
     B, L = meta.shape
     return [
         table.data_ptr(), tb.n_cells, tb.S, tb.max_sym, tb.eps, tb.unknown,
-        tb.identity, *hot_args, meta.data_ptr(), L, B, lengths.data_ptr(),
+        tb.identity, *hot_args, sb.data_ptr(), sb.numel(), int(full),
+        meta.data_ptr(), L, B, lengths.data_ptr(),
         entries.data_ptr(), stops.data_ptr(), max_steps,
         *(o.data_ptr() for o in outs),
         None if cold_total is None else cold_total.data_ptr(),
     ]
 
 
-def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
-              entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
-              cold_total: Optional[torch.Tensor] = None,
-              out: Optional[Sequence[torch.Tensor]] = None):
-    """Run every lane of the wave; see ``run_machine`` for the
-    arguments and the returned ``(events, counts, bad, state, steps,
-    cold)``.  On a CUDA device only ``events[i, :counts[i]]`` is
-    written.  ``cold_total``, a (2,) int64 tensor on the same device,
-    gains ``cold`` (on the card with atomics, so launches on several
-    streams may share it).  ``out``, six contiguous tensors of the
-    shapes :func:`outputs` gives, on the same device, receives the
-    results and is returned (on the CPU the plain machine's are copied
-    in)."""
+def _run(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total,
+         out, full: bool):
+    """Both forms' launch: the checks, then the plain machine for CPU
+    tensors or K1 on the card; returns the outputs and whether K1
+    launched."""
     B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
     dev = meta.device
     if out is not None:
         _check_out(out, B, max_steps, dev)
     if dev.type == "cpu":
-        res = run_machine(tb, meta, lengths, entries, stops, max_steps)
+        res = run_machine(tb, meta, lengths, entries, stops, max_steps,
+                          form="full" if full else "general")
         if cold_total is not None:
             cold_total += res[5]
         if out is None:
-            return res
+            return res, False
         for o, r in zip(out, res):
             o.copy_(r)
-        return tuple(out)
+        return tuple(out), False
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA devices, not {dev}")
     if tb.kind != "MATOK":
@@ -142,32 +154,72 @@ def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dt_transduce_launch(
             *_args(tb, meta, lengths, entries, stops, max_steps, outs,
-                   cold_total),
+                   cold_total, full),
             ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
-    transduce.launches += 1
-    return outs
+    return outs, True
+
+
+def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
+              entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
+              cold_total: Optional[torch.Tensor] = None,
+              out: Optional[Sequence[torch.Tensor]] = None):
+    """Run every lane of the wave with the full step; see
+    ``run_machine`` for the arguments and the returned ``(events,
+    counts, bad, state, steps, cold)``.  On a CUDA device only
+    ``events[i, :counts[i]]`` is written.  ``cold_total``, a (2,) int64
+    tensor on the same device, gains ``cold`` (on the card with atomics,
+    so launches on several streams may share it).  ``out``, six
+    contiguous tensors of the shapes :func:`outputs` gives, on the same
+    device, receives the results and is returned (on the CPU the plain
+    machine's are copied in)."""
+    res, launched = _run(tb, meta, lengths, entries, stops, max_steps,
+                         cold_total, out, True)
+    transduce.launches += launched
+    return res
 
 
 transduce.launches = 0
 
 
+def transduce_general(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
+                      entries: torch.Tensor, stops: torch.Tensor,
+                      max_steps: int,
+                      cold_total: Optional[torch.Tensor] = None,
+                      out: Optional[Sequence[torch.Tensor]] = None):
+    """:func:`transduce` with K1's general step (on the CPU the plain
+    machine's), to compare the forms; ``transduce_general.launches``
+    counts its launches."""
+    res, launched = _run(tb, meta, lengths, entries, stops, max_steps,
+                         cold_total, out, False)
+    transduce_general.launches += launched
+    return res
+
+
+transduce_general.launches = 0
+
+
 def transduce_host(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
                    entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
-                   cold_total: Optional[torch.Tensor] = None):
+                   cold_total: Optional[torch.Tensor] = None,
+                   form: str = "full"):
     """K1's step header compiled for the host with g++ (tests only:
     checks the kernel's C++ step logic, hot rows and tags included, on
-    machines without a GPU).  CPU tensors in, the same outputs as
+    machines without a GPU), with the step of ``form`` (``"full"`` or
+    ``"general"``).  CPU tensors in, the same outputs as
     :func:`transduce` out."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
     if meta.device.type != "cpu" or tb.kind != "MATOK":
         raise ValueError("the host build takes CPU tensors of a matrix model")
     lib = build.load(build.TRANSDUCE_HOST)
     outs = outputs(B, max_steps, meta.device)
     rc = lib.dt_transduce_host(
-        *_args(tb, meta, lengths, entries, stops, max_steps, outs, cold_total)
+        *_args(tb, meta, lengths, entries, stops, max_steps, outs, cold_total,
+               form == "full")
     )
     if rc != 0:
         raise RuntimeError(f"host build returned {rc}")

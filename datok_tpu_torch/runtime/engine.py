@@ -2,10 +2,11 @@
 
 Counterpart of ``BatchEngine`` (datok_tpu/runtime/jax_engine.py:1600-
 2251, the parts on the main path).  A wave of texts runs in this order:
-native wave encode (``SymbolEncoder.encode_batch``), the device machine
+native wave encode (``SymbolEncoder.encode_batch``, with the skip class
+of the model's run skip), the device machine
 (:func:`datok_tpu_torch.kernels.transduce.transduce`: K1 on a CUDA
-device, the plain machine on the CPU) on the encoder's (B, L) meta as it
-is, the copy of the compact event rows to the host, host decode, and
+device, the plain machine on the CPU, both with the full step) on the
+encoder's (B, L) meta as it is, the copy of the compact event rows to the host, host decode, and
 exact host repair of lanes that ran out of their step budget.
 Formatting goes through ``TokenWriter`` (or its native twin).  Asked
 for one, the engine chooses K1's hot set once, as the JAX engine does
@@ -96,7 +97,10 @@ class BatchEngine:
                     tok, default_profile_texts(tok), limit)[:cap]
         self.tables = with_hot(tables, states)
         self.hot_size = self.tables.hot.H if self.tables.hot else 0
-        self.encoder = SymbolEncoder(tok)
+        # meta's run lengths must count the skip class the per-state
+        # words were built with (jax_engine.py:1741-1748): with another
+        # class a skip would be wrong, not merely slower
+        self.encoder = SymbolEncoder(tok, lc_mask=self.tables.lc_mask)
         # (steps whose state was cold, all steps): of the last launch,
         # and summed over launches since reset_cold()
         self._last_cold: Optional[torch.Tensor] = None

@@ -15,7 +15,9 @@ bits 20..29 (0 = cold), so that a step learns from the cell it read
 whether its next state is hot.  The hot rows are copies of the tagged
 table's rows, one after another, which K1 stages into shared memory.
 Clearing the tag bits gives back the original cell, so every fetch is
-exact for any hot set.
+exact for any hot set.  K1's fused boundary reads its consume cell from
+the tagged table, whose tag gives the final target's hot index, and the
+ε target's hot index from ``hot_of``.
 """
 
 from __future__ import annotations

@@ -1,14 +1,31 @@
 """The plain machine: the reference transduce loop over lanes in torch.
 
-Counterpart of the general-machine path of the JAX package
-(datok_tpu/runtime/jax_engine.py: ``_make_step`` :230-602 with no
-fused boundaries and no run skip, ``_general_fetches`` :610-627,
-``_init_carry`` :630-684, ``_finish`` :687-699 and ``_run_machine``
-:702-735).  One loop iteration executes one iteration of the
-reference's per-character loop (matrix.go:383-697) for every live lane;
-divergence is handled with masks.  This is the plain version of the
-CUDA kernel K1 (``csrc/transduce.cu``): the kernel wrapper runs it for
-tensors on the CPU, and the smoke run holds K1 against it on the card.
+Counterpart of the step of the JAX package's Pallas kernel
+(datok_tpu/runtime/jax_engine.py: ``_make_step`` :230-602 with the run
+skip and the fused boundaries, as ``pallas_engine._make_kernel`` runs
+it) and of its general machine (``_make_step`` without them,
+``_general_fetches`` :610-627, ``_init_carry`` :630-684, ``_finish``
+:687-699 and ``_run_machine`` :702-735).  One loop iteration executes
+one step for every live lane; divergence is handled with masks.  This
+is the plain version of the CUDA kernel K1 (``csrc/transduce.cu``): the
+kernel wrapper runs it for tensors on the CPU, and the smoke run holds
+K1 against it on the card.
+
+Two forms of the step (``form``):
+
+- ``"full"``, the engine's: kernel 1's step.  A letter-absorbing state
+  takes a whole run of the skip class in one step (run skip), and "no
+  arc, backtrack, ε flush, re-read consume" is one step (a fused
+  boundary; a sentence end where no token is pending).  Both read the
+  tables' per-state word (:func:`datok_tpu_torch.runtime.rep.state_table`)
+  and the run length in meta bits 19..23, which the engine's encoder
+  stamps with the same skip class.  Unlike the Pallas kernel, which
+  fuses only where the final target is in its hot set, every
+  composition the gates let through fuses, so the full form may take
+  fewer steps than the Pallas kernel on the same lane; its events and
+  exit rows are the same.
+- ``"general"``: the general machine's step, one character or one
+  backtrack a step (a double-array model always runs it).
 
 Unlike the JAX machine, events go to a per-lane compact buffer in step
 order (a lane emits at most one event per step, so ``max_steps``
@@ -23,11 +40,11 @@ from __future__ import annotations
 
 import torch
 
-from .encode import (META_A_MASK, META_EOT, META_FOUND,
-                     META_NONASCII)
+from .encode import (META_A_MASK, META_EOT, META_FOUND, META_NONASCII,
+                     META_RUN_MASK, META_RUN_SHIFT)
 from .events import EV_SENT, EV_TEXT, EV_TOKEN
-
-from .rep import Tables, _take, eps_avail, transition
+from .rep import (ST_EPS, ST_EPS_AT_TGT, ST_EPS_TGT, ST_LC, Tables, _take,
+                  eps_avail, transition)
 
 # Packed-event layout: kind(2) | start(15) | end(15) (jax_engine.py:73-76)
 PACK_POS_BITS = 15
@@ -49,9 +66,15 @@ def _ctx(t, sflag, tflag, ok):
             | (ok.to(torch.int32) << 30))
 
 
+FORMS = ("full", "general")
+
+
 def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
-                entries: torch.Tensor, stops: torch.Tensor, max_steps: int):
-    """Run every lane to completion or to ``max_steps`` steps.
+                entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
+                form: str = "full"):
+    """Run every lane to completion or to ``max_steps`` steps, with the
+    step of ``form`` (:data:`FORMS`; a double-array model, which has no
+    per-state words, runs the general step in either).
 
     ``meta`` (B, L) int32: packed symbol metas, one row per lane
     (``SymbolEncoder.encode_batch``); ``lengths`` (B,)
@@ -72,6 +95,9 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
     character and at the end, ``t0`` otherwise) outside ``tb.hot``;
     drain steps and cuts read no row.
     """
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    full = form == "full" and tb.state_bits is not None
     B, L = meta.shape
     dev = meta.device
     i32 = torch.int32
@@ -142,15 +168,38 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
         eot = w(m_read, eot_new, eot)
         t0 = w(m_read, t, t0)
 
+        valid, nontok, t_succ = transition(tb, t0, a)
         # ε probe (read) and epilogue chase share one predicate on t
-        eps_here = eps_avail(tb, t)
+        if full:
+            word = _take(tb.state_bits, t.long())
+            eps_here = (word & ST_EPS) != 0
+            # run skip: a letter-absorbing state takes the run of the
+            # skip class at c (length rl, capped at 31) in one step; the
+            # leading-nontoken drop applies only to the first pending
+            # character, which the gate excludes
+            rl = (meta_v >> META_RUN_SHIFT) & META_RUN_MASK
+            m_skip = (m_read & ((word & ST_LC) != 0) & (rl >= 2)
+                      & ((c - b) - ft >= 1))
+            # fused boundary: no arc, backtrack to t, ε flush, re-read
+            # consume from the ε target e, in one step; the gates keep
+            # EOT and the stale-ok identity retry (f1) on the slow path
+            e = word & ST_EPS_TGT
+            f_valid, f_nontok, f_tgt = transition(tb, e, a)
+            bb = (m_read & ~m_skip & ~valid & (e != 0) & f_valid
+                  & (a != eps) & ~eot & (ok | (a != identity)))
+            m_bf = bb & ((c - b) > ft)  # a token is pending: flush it
+            m_bs = bb & ~m_bf  # none is: the ε ends a sentence
+        else:
+            eps_here = eps_avail(tb, t)
+            m_skip = m_bf = m_bs = bb = false
         probe = m_read & eps_here
         eps_s = w(probe, t, eps_s)
-        eps_o = w(probe, c, eps_o)
+        # a skipped run probes at each of its characters: the register
+        # holds the last
+        eps_o = w(probe, w(m_skip, c + rl - 1, c) if full else c, eps_o)
 
         # ---- transition outcome -----------------------------------------
-        valid, nontok, t_succ = transition(tb, t0, a)
-        m_trans = m_read | m_old
+        m_trans = (m_read & ~m_skip & ~bb) | m_old
         m_fail = m_trans & ~valid
         f1 = m_fail & ~ok & (a == identity)
         f2 = m_fail & ~f1 & (a != eps) & (eps_s != 0)
@@ -189,8 +238,8 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
         efin_text = efin & ~(~resid & tflag)
 
         # ---- events, always ordered T, S, X ------------------------------
-        w_tok = flush | f3 | resid
-        w_sent = sent | sent2 | efin_sent
+        w_tok = flush | f3 | resid | m_bf
+        w_sent = sent | sent2 | efin_sent | m_bs
         w_text = e_m | efin_text
         v_tok = _pack(EV_TOKEN, b + ft, w(f3, c_f3, c))
         sent_pos = w(sent2, c_cons, c)
@@ -231,9 +280,25 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
         # checkpoint the context at rewinds: a later segment can resume
         # exactly by re-reading text from b in this context
         ckpt = w(f3 | rew, _ctx(t_new, sflag, tflag, ok), ckpt)
+        if full:
+            # the fused step ends where the three steps it stands for
+            # end: the token (or sentence end) emitted above, a rewind
+            # to c (m_bf), the consume to c + 1 with the leading-nontoken
+            # drop, the backtrack register at e where ε is available
+            # there, the checkpoint e's context with both flags cleared
+            t_new = w(bb, f_tgt, t_new)
+            c_new = w(m_skip, c + rl, w(bb, c + 1, c_new))
+            ft = w(m_bf, f_nontok.to(i32), w(m_bs, ft + f_nontok.to(i32), ft))
+            b = w(m_bf, c, b)
+            eps_s = w(bb, w((word & ST_EPS_AT_TGT) != 0, e, zeros), eps_s)
+            eps_o = w(bb, c, eps_o)
+            newchar = newchar | bb
+            sflag = w(m_bf, false, w(m_bs, ~false, sflag))
+            tflag = tflag & ~m_bf
+            ckpt = w(m_bf, e | (ok.to(i32) << 30), ckpt)
         t = t_new
         c = c_new
-        n_backtrack = n_backtrack + f2.to(i32)
+        n_backtrack = n_backtrack + (f2 | bb).to(i32)
         n_force = n_force + f3.to(i32)
         steps = steps + live.to(i32)
         # the state whose row the step read: t on a new character, t0

@@ -7,6 +7,11 @@ reinterpreted as int32 so that torch can hold them: the port computes
 on the same bytes as the JAX package.  Bit tests therefore read
 ``FIRSTBIT`` (1<<31) as the sign bit.  A matrix model's tables may also
 carry K1's hot set (:class:`HotTable`, :func:`with_hot`).
+
+A matrix model's tables also carry what the full step (run skip and
+fused boundaries) reads of each state, one int32 word a state
+(:func:`state_table`), and the skip class it was built with
+(:func:`skip_class`), which the engine's encoder stamps into meta.
 """
 
 from __future__ import annotations
@@ -17,8 +22,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..fsa.io import RESTBIT  # bits 0..29: state id / base offset
+from ..fsa.io import FIRSTBIT, RESTBIT  # RESTBIT: state id / base offset
 from .hot import pack_hot
+
+# The per-state word of the full step (:func:`state_table`):
+ST_EPS_TGT = (1 << 28) - 1  # bits 0..27: the ε target where a boundary fuses
+ST_EPS = 1 << 28  # an ε arc leaves the state (the probe)
+ST_EPS_AT_TGT = 1 << 29  # an ε arc leaves its ε target
+ST_LC = 1 << 30  # the state self-loops on every letter of the skip class
 
 
 @dataclass(frozen=True)
@@ -60,15 +71,105 @@ class Tables:
     max_sym: int
     size: int
     hot: Optional[HotTable] = None
+    state_bits: Optional[torch.Tensor] = None
+    lc_mask: Optional[np.ndarray] = None
 
     @property
     def device(self) -> torch.device:
         return self.arrays[0].device
 
 
+def skip_class(tok) -> Tuple[np.ndarray, np.ndarray]:
+    """The run skip's letter class of a matrix model: ``(lc_mask (128,)
+    bool, lc_avail (S+1,) uint8)``, a copy of the skip-class part of
+    ``_tok_static`` (datok_tpu/runtime/jax_engine.py:793-833).
+
+    A state is letter-absorbing (``lc_avail``) when it self-loops, with
+    no nontoken flag, on every letter of the class; such a state takes a
+    whole run of them in one step (each skipped character would probe
+    the same ε bit and take the same self-arc).  The class starts as
+    the ASCII letters a-z in sigma and greedily drops letters that break
+    many otherwise absorbing states (the DE grammar routes ``s`` through
+    its genitive states).  Cached on ``tok``."""
+    st = getattr(tok, "_skip_class", None)
+    if st is not None:
+        return st
+    arr = np.asarray(tok.array, dtype=np.uint32)
+    S = int(tok.state_count)
+    states = np.arange(S + 1, dtype=np.int64)
+    letters = [cp for cp in range(ord("a"), ord("z") + 1) if cp in tok.sigma]
+    lc_avail = np.zeros(S + 1, dtype=np.uint8)
+    lc_mask = np.zeros(128, dtype=bool)
+    if letters:
+        syms = np.array([tok.sigma[cp] for cp in letters], dtype=np.int64)
+        cells_lc = arr[((syms[:, None] - 1) * S + states[None, :])]
+        ok_lc = (
+            (cells_lc != 0)
+            & ((cells_lc & ~np.uint32(FIRSTBIT)) == states[None, :])
+            & ((cells_lc >> 31) == 0)
+        )  # (len(letters), S+1)
+        counts = ok_lc.sum(axis=0)
+        cand = counts >= max(1, int(len(letters) * 0.75))  # absorbing-ish
+        keep = np.ones(len(letters), dtype=bool)
+        for _ in range(6):  # drop at most a few run-splitting letters
+            flagged = ok_lc[keep].all(axis=0) & cand
+            best_gain, best_i = 0, -1
+            for i in np.flatnonzero(keep):
+                k2 = keep.copy()
+                k2[i] = False
+                gain = int((ok_lc[k2].all(axis=0) & cand).sum()) - int(
+                    flagged.sum()
+                )
+                if gain > best_gain:
+                    best_gain, best_i = gain, i
+            if best_i < 0 or best_gain < max(4, int(cand.sum() * 0.1)):
+                break
+            keep[best_i] = False
+        lc_avail = (ok_lc[keep].all(axis=0)).astype(np.uint8)
+        lc_avail[0] = 0
+        for i in np.flatnonzero(keep):
+            lc_mask[letters[i]] = True
+    tok._skip_class = (lc_mask, lc_avail)
+    return tok._skip_class
+
+
+def state_table(array: np.ndarray, S: int, max_sym: int, eps: int,
+                lc_avail: np.ndarray) -> np.ndarray:
+    """The word the full step reads of each state 0..S (int32):
+
+    - bits 0..27 (:data:`ST_EPS_TGT`): the target ``e`` of the state's ε
+      arc where a boundary at the state can fuse, else 0.  It fuses
+      when the state is not 0 (a backtrack register of 0 means none),
+      the ε arc is a transition the step can take (``1 <= eps <=
+      max_sym``), and ``e`` is a state 1..S;
+    - bit 28 (:data:`ST_EPS`): the state's ε cell is not 0, the probe of
+      the general step for every state 0..S;
+    - bit 29 (:data:`ST_EPS_AT_TGT`): the same at ``e``;
+    - bit 30 (:data:`ST_LC`): ``lc_avail``, the state is letter-absorbing
+      (:func:`skip_class`).
+
+    This is the GPU's form of what the JAX package's ``HotSpec``
+    precomputes per hot state (``lc_avail``, ``eps_avail``,
+    ``hot_eps_full`` and the fused entries' bit 15), for every state."""
+    arr = np.asarray(array, dtype=np.uint32).reshape(-1)
+    states = np.arange(S + 1, dtype=np.int64)
+    idx = (eps - 1) * S + states
+    inside = (idx >= 0) & (idx < len(arr))
+    cells = np.where(inside, arr[np.where(inside, idx, 0)], np.uint32(0))
+    has = cells != 0
+    tgt = (cells & np.uint32(0x7FFFFFFF)).astype(np.int64)
+    fuse = has & (states != 0) & (tgt >= 1) & (tgt <= S) & (1 <= eps <= max_sym)
+    e = np.where(fuse, tgt, 0)
+    word = (e | has.astype(np.int64) << 28
+            | (fuse & has[e]).astype(np.int64) << 29
+            | (np.asarray(lc_avail) != 0).astype(np.int64) << 30)
+    return word.astype(np.int32)
+
+
 def tables_from_tokenizer(tok, device) -> Tables:
     """Carry ``tok``'s tables to ``device`` (no copy of the semantics:
-    the cells are ``make_rep(tok).tables`` bit for bit)."""
+    the cells are ``make_rep(tok).tables`` bit for bit); a matrix
+    model's also carry :func:`state_table` and the skip class."""
     device = torch.device(device)
     if tok.type() == "MATOK":
         raw = (np.asarray(tok.array, dtype=np.uint32),)
@@ -87,17 +188,24 @@ def tables_from_tokenizer(tok, device) -> Tables:
         torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
         for a in raw
     )
+    state_bits = lc_mask = None
+    if tok.type() == "MATOK":
+        lc_mask, lc_avail = skip_class(tok)
+        state_bits = torch.from_numpy(state_table(
+            raw[0], S, max_sym, int(tok.epsilon), lc_avail)).to(device)
     return Tables(
         kind=tok.type(), arrays=arrays, S=S, eps=int(tok.epsilon),
         unknown=int(tok.unknown), identity=int(tok.identity),
         n_cells=n_cells, max_sym=max_sym, size=size,
+        state_bits=state_bits, lc_mask=lc_mask,
     )
 
 
 def with_hot(tb: Tables, states: Sequence[int]) -> Tables:
     """``tb`` with the hot set ``states`` packed for K1; without one when
     ``states`` is empty, the model is not a matrix, or the tags do not
-    fit (:func:`datok_tpu_torch.runtime.hot.pack_hot` returns None)."""
+    fit (:func:`datok_tpu_torch.runtime.hot.pack_hot` returns None).
+    The per-state words stay as they are: they hold state ids."""
     if tb.kind != "MATOK" or len(states) == 0:
         return replace(tb, hot=None)
     (table,) = tb.arrays

@@ -19,7 +19,13 @@ text.  Its paths reach every branch of the transduce step:
 * characters outside sigma reach the identity arc inside words and
   the identity→unknown retry (f1) at the root;
 * Latin-1 letters ride the ASCII path, and ``œ € „`` are non-ASCII
-  symbols that set ``ok``.
+  symbols that set ``ok``;
+* the word state self-loops on every letter, so the run skip takes
+  whole runs of lowercase letters in it.  With ``genitive=True`` words
+  that leave the root or the abbreviation trie go to one of
+  :data:`N_GENITIVE` word states that self-loop on every letter but
+  ``s``, which leads to a genitive state, as the DE grammar routes
+  ``s``: the skip class then drops ``s``.
 
 The matrix has 171 symbol columns, like the DE model's.  With
 :data:`DE_N_ABBREV` abbreviations it has about 18,400 states, 12.6 MB
@@ -38,6 +44,7 @@ from ..fsa.matrix import MatrixTokenizer
 EPS, UNKNOWN, IDENTITY, TOKENEND = 1, 2, 3, 4
 N_COLUMNS = 171  # symbol columns of the DE model's matrix
 DE_N_ABBREV = 5945  # abbreviations that bring the state count to DE's
+N_GENITIVE = 6  # word states of the genitive option that loop on all but s
 
 _LOWER = "abcdefghijklmnopqrstuvwxyz"
 _UPPER = _LOWER.upper()
@@ -86,12 +93,14 @@ def _abbreviations(n: int, rng: random.Random) -> List[str]:
     return sorted(out)
 
 
-def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
+def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True,
+                    genitive: bool = False):
     """The model as an :class:`Automaton`, plus its abbreviation list.
 
     ``eot=False`` leaves ``\\x04`` out of sigma (one column fewer): it
     then reads as the identity symbol, inside words and at the root,
-    like any other character the model does not know."""
+    like any other character the model does not know.  ``genitive``
+    adds the genitive word states (module docstring) after the trie's."""
     rng = random.Random(seed)
     abbrevs = _abbreviations(n_abbrev, rng)
     abbrev_set = set(abbrevs)
@@ -101,6 +110,17 @@ def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
     sigma = SIGMA if eot else SIGMA.replace(_EOT, "")
     sym = {ch: TOKENEND + 1 + i for i, ch in enumerate(sigma)}
     S = _N_FIXED + len(prefixes)
+    gen_words = []
+    if genitive:
+        gen_words = list(range(S + 1, S + 1 + N_GENITIVE))
+        S += N_GENITIVE + 1  # the word states, then the genitive state
+
+    def word(key: str) -> int:
+        """Where a word goes that leaves the root or the trie."""
+        if not gen_words:
+            return WORD
+        return gen_words[sum(map(ord, key)) % len(gen_words)]
+
     auto = Automaton()
     auto.epsilon, auto.unknown, auto.identity = EPS, UNKNOWN, IDENTITY
     auto.tokenend = TOKENEND
@@ -131,7 +151,7 @@ def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
     for ch in _WS + (_EOT if eot else ""):
         arc(ROOT, sym[ch], ROOT, nontoken=True)
     for ch in LETTERS:
-        arc(ROOT, sym[ch], node.get(ch, WORD))
+        arc(ROOT, sym[ch], node.get(ch, word(ch)))
     chars(ROOT, _DIGITS, NUM)
     chars(ROOT, _PUNCT + _NONASCII_PUNCT[:-1], PUNCT)
     chars(ROOT, _SENT + "…", SENT)
@@ -172,7 +192,7 @@ def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
                 arc(s, EPS, ROOT)
             continue
         for ch in LETTERS:
-            arc(s, sym[ch], node.get(p + ch, WORD))
+            arc(s, sym[ch], node.get(p + ch, word(p + ch)))
         if p + "." in node:
             arc(s, sym["."], node[p + "."])
         elif p in abbrev_set:
@@ -180,14 +200,26 @@ def synth_automaton(n_abbrev: int, seed: int = 0, eot: bool = True):
         arc(s, IDENTITY, WORD)
         chars(s, "-", HYPHEN)
         arc(s, EPS, ROOT)
+    if gen_words:
+        gen = S
+        for s in gen_words:
+            for ch in LETTERS:
+                arc(s, sym[ch], gen if ch == "s" else s)
+        chars(gen, LETTERS, WORD)
+        for s in gen_words + [gen]:
+            arc(s, IDENTITY, WORD)
+            chars(s, "-", HYPHEN)
+            arc(s, EPS, ROOT)
     return auto, abbrevs
 
 
 def synth_tokenizer(n_abbrev: int = DE_N_ABBREV, seed: int = 0,
-                    eot: bool = True) -> MatrixTokenizer:
+                    eot: bool = True, genitive: bool = False
+                    ) -> MatrixTokenizer:
     """Deterministic matrix model; ``tok.abbrevs`` holds its vocabulary.
-    ``eot=False`` builds it without ``\\x04`` in sigma."""
-    auto, abbrevs = synth_automaton(n_abbrev, seed, eot)
+    ``eot=False`` builds it without ``\\x04`` in sigma; ``genitive``
+    with the genitive word states (the skip class drops ``s``)."""
+    auto, abbrevs = synth_automaton(n_abbrev, seed, eot, genitive)
     tok = MatrixTokenizer.from_automaton(auto)
     tok.abbrevs = abbrevs
     return tok

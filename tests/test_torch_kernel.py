@@ -7,12 +7,13 @@
   Step counts and which lanes go ``bad`` are budget artefacts of either
   machine, so events and exit state are compared on lanes that finish
   in both runs.
-* K1's C++ step header built for the host with g++ against the JAX
-  general machine (exactly, ``bad`` lanes included) and the Pallas run.
+* K1's C++ step header built for the host with g++: its general form
+  against the JAX general machine (exactly, ``bad`` lanes included),
+  its full form (the engine's) against the Pallas run.
 * The host build with K1's hot set (runtime/hot.py), at hot sets of
   size 0, 1, 8 and auto and one that leaves out the states the texts
-  visit most, against the same two and the plain machine, cold-step
-  counts included.
+  visit most, in the same two pairings, and against the plain machine,
+  cold-step counts included.
 * The tagged tables (``pack_hot``), and ``profile_hot_states`` against
   the JAX function.
 * ``tables_from_tokenizer`` against ``make_rep(tok).tables``, byte for
@@ -87,12 +88,13 @@ def _inputs(tok, wave, case, root_state):
     return meta, lengths, entries, stops
 
 
-def _port(fn, tok, meta, lengths, entries, stops, max_steps, tables=None):
+def _port(fn, tok, meta, lengths, entries, stops, max_steps, tables=None,
+          **form):
     ev, counts, bad, state, steps, _cold = fn(
         tables if tables is not None else tables_from_tokenizer(tok, "cpu"),
         torch.from_numpy(meta),
         torch.from_numpy(lengths), torch.from_numpy(entries),
-        torch.from_numpy(stops), max_steps,
+        torch.from_numpy(stops), max_steps, **form,
     )
     evs = decode_events_compact(ev.numpy(), counts.numpy(), as_arrays=True)
     return evs, bad.numpy(), state.numpy(), steps.numpy()
@@ -125,8 +127,8 @@ def test_matches_pallas_kernel(tok, pallas, wave, pallas_root, fn, case):
 @pytest.mark.parametrize("budget", ["full", "tiny"])
 @pytest.mark.parametrize("case", ["root", "entries_stops"])
 def test_host_build_matches_jax_machine(tok, wave, pallas_root, case, budget):
-    """The C++ step against the JAX general machine: every lane and
-    every quantity, unfinished lanes included."""
+    """The C++ general step against the JAX general machine: every lane
+    and every quantity, unfinished lanes included."""
     meta, lengths, entries, stops = _inputs(tok, wave, case, pallas_root[2])
     max_steps = 2 * meta.shape[1] + 64 if budget == "full" else 40
     rep = make_rep(jax_twin(tok))
@@ -138,7 +140,8 @@ def test_host_build_matches_jax_machine(tok, wave, pallas_root, case, budget):
     )
     ev_r = decode_events_batch(np.asarray(ys), int(n), as_arrays=True)
     ev, bad_h, state_h, steps_h = _port(transduce_host, tok, meta, lengths,
-                                        entries, stops, max_steps)
+                                        entries, stops, max_steps,
+                                        form="general")
     assert (budget == "tiny") == bool(np.asarray(bad).any())
     np.testing.assert_array_equal(bad_h, np.asarray(bad))
     np.testing.assert_array_equal(state_h, np.asarray(state))
@@ -297,14 +300,15 @@ def jax_general(tok, wave, pallas_root):
 @pytest.mark.parametrize("hot", HOT)
 def test_hot_host_build_matches_jax_machine(tok, jax_general, hot_tables,
                                             hot, case, budget):
-    """Every lane and every quantity, unfinished lanes included, and the
-    cold-step count equal to the plain machine's on the same tables."""
+    """The general step: every lane and every quantity, unfinished lanes
+    included, and the cold-step count equal to the plain machine's on
+    the same tables."""
     args, ev_r, bad, n, state = jax_general(case, budget)
     meta, lengths, entries, stops, max_steps = args
     tb = hot_tables[hot]
     out = transduce_host(tb, torch.from_numpy(meta), torch.from_numpy(lengths),
                          torch.from_numpy(entries), torch.from_numpy(stops),
-                         max_steps)
+                         max_steps, form="general")
     ev = decode_events_compact(out[0].numpy(), out[1].numpy(), as_arrays=True)
     np.testing.assert_array_equal(out[2].numpy(), bad)
     np.testing.assert_array_equal(out[3].numpy(), state)
@@ -313,7 +317,7 @@ def test_hot_host_build_matches_jax_machine(tok, jax_general, hot_tables,
         np.testing.assert_array_equal(a, b, err_msg=f"lane {i}")
     plain = run_machine(tb, torch.from_numpy(meta), torch.from_numpy(lengths),
                         torch.from_numpy(entries), torch.from_numpy(stops),
-                        max_steps)
+                        max_steps, form="general")
     assert out[5].tolist() == plain[5].tolist()
     n_cold, n_steps = out[5].tolist()
     assert n_steps == int(out[4].sum())

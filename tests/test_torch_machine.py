@@ -1,6 +1,7 @@
 """The port's plain machine against the JAX general machine.
 
-``datok_tpu_torch.runtime.machine.run_machine`` must reproduce
+``datok_tpu_torch.runtime.machine.run_machine`` in its general form must
+reproduce
 ``datok_tpu.runtime.jax_engine._run_machine`` exactly (every quantity
 is an integer): per-lane events, exit-state rows, ``bad`` and step
 counts, for matrix models and their ``.datok`` twins, from the root and
@@ -68,7 +69,7 @@ def _torch(tok, meta, lengths, entries, stops, max_steps):
     ev, counts, bad, state, steps, _cold = run_machine(
         tables_from_tokenizer(tok, "cpu"), torch.from_numpy(meta),
         torch.from_numpy(lengths), torch.from_numpy(entries),
-        torch.from_numpy(stops), max_steps,
+        torch.from_numpy(stops), max_steps, form="general",
     )
     counts = counts.numpy()
     assert (ev.numpy()[np.arange(ev.shape[1])[None, :] >= counts[:, None]] == 0).all()
