@@ -28,6 +28,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    full, general), with each form's steps a character, instructions a
    step and bound; the main path must not have launched the general
    form;
+4b. the double array: the DE-size ``synth_datok`` (phase 4's model as
+   base/check, about 3.05 M cells) on K1's general form over base/check:
+   (a) K1 and the plain machine on phase 3's shape with entries and
+   stops, equal on every quantity; (b) phase 4's wave through
+   ``BatchEngine(da, device="cuda", engine="general").events_batch`` and
+   the native writer, which must launch the double-array form and only
+   it, every lane equal in events, counts, steps, backtracks, forced
+   emits and bytes to the matrix engine under ``engine="general"``, the
+   bytes equal to phase 4's, and K1 equal to the plain machine on 1024
+   of its lanes and on all of them (timed in turns); (c) ``"auto"`` on
+   a double array whose ``to_matrix()`` raises must warn and run on the
+   card; (d) the double-array form, the matrix general form and the
+   matrix full form in turns, with steps a character, each warp's
+   slowest lane, instructions a step and the bound; (e) phase 8(a)'s
+   stream once through ``tokenize_stream_pipelined`` on the
+   double-array engine, byte-equal to the native oracle;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
    through the same path;
 6. the probe kernels: KF (``csrc/hot_fetch.cu``, prepared once, select
@@ -109,8 +125,10 @@ same function, where there is one; K1's entry adds its time with the
 ``"auto"`` hot set and that set's size, its time with one text on every
 lane, the cold shares, its two forms' turns, steps a character,
 instructions a step and bounds on the waves of phases 4 and 8
-(``forms``), each instantiation's instructions a step (``step_instr``)
-and phase 10's numbers; KF's and KP's add their device time a call,
+(``forms``), each instantiation's instructions a step (``step_instr``),
+phase 10's numbers and phase 4b's (``da``: the double-array form's
+launches in that phase, its time, plain time, bound and instructions a
+step); KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -125,6 +143,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -267,19 +286,21 @@ def k1_turns(args, tb_hot, tb_none, n=10):
     return (z1, h1, h2, z2), share
 
 
-def k1_kernel(B, n_sm, form="full"):
+def k1_key(threads, full, da):
+    """The name of one instantiation of K1 in the printed numbers:
+    block size / form / layout."""
+    return (f"{threads}/{'full' if full else 'general'}/"
+            f"{'da' if da else 'matrix'}")
+
+
+def k1_kernel(B, n_sm, form="full", layout="matrix"):
     """The instantiation of K1 that a launch of B lanes runs
     (transduce.cu): its blocks take ceil(B / SMs) lanes rounded up to a
-    warp, at most 1024, and up to 256 run the 256-thread kernel."""
+    warp, at most 1024, and up to 256 run the 256-thread kernel; a
+    double array always runs the 256-thread one."""
     per_sm = -(-B // n_sm)
-    threads = 256 if min(-(-per_sm // 32) * 32, 1024) <= 256 else 1024
-    return f"transduce_kernelILi{threads}ELb{int(form == 'full')}EE"
-
-
-def k1_instances():
-    """Every instantiation of K1: both block sizes in both forms."""
-    return [f"transduce_kernelILi{t}ELb{f}EE" for t in (256, 1024)
-            for f in (0, 1)]
+    small = min(-(-per_sm // 32) * 32, 1024) <= 256 or layout == "da"
+    return k1_key(256 if small else 1024, form == "full", layout == "da")
 
 
 def form_turns(args, label, chip, card, n_states, n=10):
@@ -323,14 +344,11 @@ def form_turns(args, label, chip, card, n_states, n=10):
         bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
             args[1:5], r, n_states, instr, chip["n_sm"], chip["clock_hz"],
             words)
-        # K1's time follows each warp's slowest lane (32 lanes a warp)
-        lane = r[4].long()
-        pad = (-lane.numel()) % 32
-        warp = torch.cat([lane, lane.new_zeros(pad)]).view(-1, 32).amax(1)
+        # K1's time follows each warp's slowest lane
         out[form] = {"ms": ms, "steps": n_steps,
                      "steps_per_char": n_steps / n_chars,
-                     "warp_max_steps_mean": float(warp.float().mean()),
-                     "max_lane_steps": int(lane.max()),
+                     "warp_max_steps_mean": warp_max_steps(r[4]),
+                     "max_lane_steps": int(r[4].max()),
                      "bad_lanes": int(r[2].sum()), "kernel": kern,
                      "step_instr": instr, "bound_ms": bound, "bound_by": by,
                      "bytes": n_b, "bytes_ms": b_ms, "instr_ms": ops_ms}
@@ -383,14 +401,7 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     kt.transduce.launches = kt.transduce_general.launches = 0
     t0 = time.perf_counter()
     evs = eng.events_batch(texts, as_arrays=True)
-    counts = np.array([len(e) for e in evs], dtype=np.int32)
-    lens = np.array([len(t) for t in texts], dtype=np.int32)
-    offs = np.zeros(len(texts), dtype=np.int64)
-    np.cumsum(lens[:-1], out=offs[1:])
-    cps = np.frombuffer("".join(texts).encode("utf-32-le"), dtype="<u4")
-    writer = dtt.NativeWriter(dtt.SIMPLE)
-    writer.feed_wave(np.concatenate(evs), counts, cps.astype(np.int32), offs, lens)
-    out = writer.getvalue()
+    out = format_wave(dtt, texts, evs)
     wall = time.perf_counter() - t0
     launches = kt.transduce.launches
     if launches < 1:
@@ -476,10 +487,250 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
           f"ms (means of 10) [{card}]", flush=True)
     forms = form_turns(args, label, chip, card, int(seen.sum()))
     return {"launches": launches, "err": err, "ms": ms, "evs": evs,
-            "forms": forms, "seen": int(seen.sum()),
+            "out": out, "forms": forms, "seen": int(seen.sum()),
             "ms_auto": (h1 + h2) / 2, "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": by, "cold_share": share,
             "ms_same_text": (u1 + u2) / 2, "ms_same_text_auto": (uh1 + uh2) / 2}
+
+
+def lanes_equal(a, b, label):
+    """Raise unless two machine results agree on every lane in events
+    (masked by their counts), counts, ``bad``, steps, backtracks and
+    forced emits: what two layouts of one model share (their states
+    are numbered apart)."""
+    same = (torch.equal(masked(a[0], a[1]), masked(b[0], b[1]))
+            and all(torch.equal(x, y) for x, y in
+                    ((a[1], b[1]), (a[2], b[2]), (a[4], b[4]),
+                     (a[3][:, 2:], b[3][:, 2:]))))
+    if not same:
+        raise RuntimeError(f"{label}: the double array's lanes differ from "
+                           "the matrix's")
+
+
+def warp_max_steps(steps):
+    """Each warp's slowest lane (32 lanes a warp), as a mean."""
+    lane = steps.long()
+    pad = (-lane.numel()) % 32
+    return float(torch.cat([lane, lane.new_zeros(pad)]).view(-1, 32)
+                 .amax(1).float().mean())
+
+
+def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
+    """Phase 4b: the DE-size double array (``synth_datok``, the twin of
+    phase 4's model) on K1's general form over base/check.  (a) K1
+    against the plain machine on phase 3's shape with entries and
+    stops; (b) phase 4's wave through ``BatchEngine(da,
+    engine="general").events_batch`` and the native writer, equal on
+    every lane to the matrix engine under ``engine="general"`` and to
+    phase 4's bytes, then K1 against the plain machine on the wave's
+    tensors, in turns; (c) ``"auto"`` on a double array whose
+    conversion fails; (d) the double-array form, the matrix general
+    form and the matrix full form in turns, with steps a character,
+    instructions a step and the bound; (e) phase 8(a)'s stream
+    pipelined on the double-array engine.  Returns the ``da`` block of
+    the ``kernels`` line and stream (a) with its native oracle output."""
+    from datok_tpu_torch.fsa.double_array import DaTokenizer
+    from datok_tpu_torch.testing.synth import DE_N_ABBREV, synth_datok
+
+    t0 = time.perf_counter()
+    da = synth_datok(DE_N_ABBREV, SEED)
+    built = time.perf_counter() - t0
+    eng_da = dtt.BatchEngine(da, device="cuda", engine="general")
+    tb = eng_da.tables
+    if eng_da.engine != "general" or tb.kind != "DATOK":
+        raise RuntimeError("engine='general' did not keep the double array")
+    sep = int((np.asarray(da.base, np.uint32) >> 31).sum())
+    print(f"da: synthetic DE-size double array, {tb.n_cells} base/check "
+          f"cells ({8 * tb.n_cells / 1e6:.2f} MB), {sep} separate-state "
+          f"slots, size {tb.size}, built in {built:.2f} s", flush=True)
+
+    # (a) K1 against the plain machine, phase 3's shape, entries and stops
+    B3, L3 = CHECK_SHAPE
+    meta3, lengths3, _ = eng_da.encoder.encode_batch(texts3)
+    rng = np.random.default_rng(SEED + 7)
+    stops3 = rng.random(B3) < 0.125
+    ms3 = eng_da.max_steps_for(meta3.shape[1])
+    first = run_machine(tb, *to_cuda(meta3, lengths3, None, stops3), ms3,
+                        form="general")
+    # non-root entries: that run's exit contexts (slot ids), shuffled
+    entries3 = first[3][:, 0].cpu().numpy()[rng.permutation(B3)]
+    args3 = (tb, *to_cuda(meta3, lengths3, entries3, stops3), ms3)
+    err_a = max_abs_err(kt.transduce_general(*args3),
+                        run_machine(*args3, form="general"))
+    if err_a != 0:
+        raise RuntimeError(f"da (a): K1's double-array form differs from "
+                           f"the plain machine (max abs err {err_a})")
+    print(f"da (a): kernel vs plain, B={B3} x L={L3} with entries and "
+          f"stops: events/counts/bad/state/steps/cold equal (max abs err "
+          f"{err_a}) [{card}]", flush=True)
+
+    # (b) the main path
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    torch.cuda.synchronize()
+    kt.transduce.launches = kt.transduce_general.launches = 0
+    t0 = time.perf_counter()
+    evs = eng_da.events_batch(texts, as_arrays=True)
+    out = format_wave(dtt, texts, evs)
+    wall = time.perf_counter() - t0
+    launches_b = kt.transduce_general.launches
+    if launches_b < 1:
+        raise RuntimeError("da (b): the main path did not launch K1's "
+                           "double-array form")
+    if kt.transduce.launches:
+        raise RuntimeError("da (b): a general engine launched the full form")
+    check_same("da (b) main path", out, w4["out"])
+    eng_mg = dtt.BatchEngine(eng.tok, device="cuda", engine="general")
+    evs_mg = eng_mg.events_batch(texts, as_arrays=True)
+    for i, (x, y) in enumerate(zip(evs, evs_mg)):
+        if not np.array_equal(x, y):
+            raise RuntimeError(f"da (b): lane {i} differs from the matrix "
+                               f"engine: {texts[i][:80]!r}")
+    check_same("da (b) matrix engine, general", format_wave(dtt, texts, evs_mg),
+               out)
+    meta, lengths, _ = eng_da.encoder.encode_batch(texts)
+    meta_m, lengths_m, _ = eng_mg.encoder.encode_batch(texts)
+    steps_w = eng_da.max_steps_for(meta.shape[1])
+    args = (tb, *to_cuda(meta, lengths), steps_w)
+    args_mg = (eng_mg.tables, *to_cuda(meta_m, lengths_m), steps_w)
+    res = kt.transduce_general(*args)
+    lanes_equal(res, kt.transduce_general(*args_mg), "da (b)")
+    print(f"da (b): main path {n_bytes / wall / 1e6:.2f} MB/s ({n_bytes} "
+          f"bytes in {wall:.3f} s, encode+K1+decode+format), K1 "
+          f"double-array launches {launches_b}; every lane's events, "
+          "counts, steps, backtracks and forced emits equal to the matrix "
+          "engine's (engine='general'), the bytes equal to phase 4's "
+          f"[{card}]", flush=True)
+    sl = tuple(x[:1024] for x in args[1:5])
+    err_b = max_abs_err(kt.transduce_general(tb, *sl, steps_w),
+                        run_machine(tb, *sl, steps_w, form="general"))
+    if err_b != 0:
+        raise RuntimeError(f"da (b): K1 differs from the plain machine on "
+                           f"1024 lanes of the wave (max abs err {err_b})")
+    # in turns: plain, kernel, kernel, plain on the whole wave
+    p1, plain = cuda_ms(lambda: run_machine(*args, form="general"))
+    k1, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    k2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    p2, _ = cuda_ms(lambda: run_machine(*args, form="general"))
+    err_b = max(err_b, max_abs_err(res, plain))
+    if err_b != 0:
+        raise RuntimeError(f"da (b): K1 differs from the plain machine on "
+                           f"the wave (max abs err {err_b})")
+    print(f"da (b): kernel vs plain on 1024 lanes of the wave and on all "
+          f"{len(texts)}, every quantity equal (max abs err {err_b}); K1 "
+          f"{k1:.4f} / {k2:.4f} ms (means of 10), plain {p1:.1f} / "
+          f"{p2:.1f} ms [{card}]", flush=True)
+
+    # (c) "auto" on a double array whose conversion fails
+    class NoMatrix(DaTokenizer):
+        def to_matrix(self):
+            raise ValueError("no dense form (smoke phase 4b)")
+
+    nm = NoMatrix()
+    nm.__dict__.update(vars(da))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng_nm = dtt.BatchEngine(nm, device="cuda")
+    if not any("falling back to the serial-gather engine" in str(w.message)
+               for w in caught):
+        raise RuntimeError("da (c): a failed conversion did not warn")
+    if eng_nm.engine != "general" or eng_nm.tables.kind != "DATOK":
+        raise RuntimeError("da (c): a failed conversion left the double array")
+    sub = texts[:2048]
+    kt.transduce.launches = kt.transduce_general.launches = 0
+    evs_nm = eng_nm.events_batch(sub, as_arrays=True)
+    launches_c = kt.transduce_general.launches
+    if launches_c < 1 or kt.transduce.launches:
+        raise RuntimeError("da (c): the double-array form did not launch")
+    if not all(np.array_equal(x, y) for x, y in zip(evs_nm, evs)):
+        raise RuntimeError("da (c): lanes differ from (b)")
+    print(f"da (c): 'auto' with a failing to_matrix() warned "
+          f"({len(caught)} warning(s)) and ran {len(sub)} lanes on the card "
+          f"through K1's double-array form (launches {launches_c}), equal "
+          f"to (b) [{card}]", flush=True)
+
+    # (d) in turns: the double array, the matrix general, the matrix full
+    meta_f, lengths_f, _ = eng.encoder.encode_batch(texts)
+    args_f = (eng.tables, *to_cuda(meta_f, lengths_f), steps_w)
+    d1, r_da = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    g1, r_mg = cuda_ms(lambda: kt.transduce_general(*args_mg), n=10, warmup=2)
+    f1, _ = cuda_ms(lambda: kt.transduce(*args_f), n=10, warmup=2)
+    d2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    ms = (d1 + d2) / 2
+    n_chars = max(int(lengths.sum()), 1)
+    kern = k1_kernel(int(meta.shape[0]), chip["n_sm"], "general", "da")
+    instr = chip["step_instr"][kern]
+    # bytes: a base and a check cell of each state the walk reads
+    bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
+        args[1:5], r_da, w4["seen"], instr, chip["n_sm"], chip["clock_hz"],
+        w4["seen"])
+    warp = warp_max_steps(r_da[4])
+    print(f"da (d): in turns, B={meta.shape[0]} x L={meta.shape[1]}, "
+          f"double array / matrix general / matrix full / double array: "
+          f"{d1:.4f} / {g1:.4f} / {f1:.4f} / {d2:.4f} ms (means of 10); "
+          f"double array / matrix general {ms / g1:.3f} [{card}]",
+          flush=True)
+    print(f"da (d): K1 double-array form: {n_steps} steps, "
+          f"{n_steps / n_chars:.4f} steps/char (matrix general "
+          f"{int(r_mg[4].long().sum()) / n_chars:.4f}), a warp's slowest "
+          f"lane {warp:.1f} steps on average, {instr} instructions a step "
+          f"({kern}); bound {bound:.4f} ms by {by} (instructions "
+          f"{ops_ms:.4f} ms, bytes {n_b} = {b_ms:.4f} ms); mean {ms:.4f} "
+          f"ms, {ms / bound:.2f}x its bound [{card}]", flush=True)
+
+    # (e) phase 8(a)'s stream, pipelined on the double-array engine
+    t0 = time.perf_counter()
+    text_a = "".join(t + "\x04\n" for t in texts)
+    want_a = native_oracle(dtt, eng, text_a)
+    print(f"da (e): stream (a) of phase 8, {len(text_a.encode('utf-8'))} "
+          f"bytes, {len(texts)} documents; its native oracle in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    st = {}
+    kt.transduce.launches = kt.transduce_general.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dtt.tokenize_stream_pipelined(
+        da, text_a, dtt.NativeWriter(dtt.SIMPLE), engine=eng_da,
+        stats=st).getvalue()
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    launches_e = kt.transduce_general.launches
+    if launches_e < 1 or kt.transduce.launches:
+        raise RuntimeError("da (e): the stream did not run the double-array "
+                           "form alone")
+    check_same("da (e) pipelined", got, want_a)
+    n_e = len(text_a.encode("utf-8"))
+    print(f"da (e): phase 8(a)'s stream pipelined (defaults) on the double "
+          f"array: {n_e / wall_e / 1e6:.2f} MB/s ({n_e} bytes in "
+          f"{wall_e:.3f} s), K1 launches {launches_e}, byte-equal to the "
+          f"native oracle; {stage_line(st, wall_e)}; stats {json.dumps(st)} "
+          f"[{card}]", flush=True)
+    block = {
+        "launches": launches_b + launches_c + launches_e,
+        "launches_by_part": {"b": launches_b, "c": launches_c,
+                             "e": launches_e},
+        "max_abs_err": max(err_a, err_b), "ms": ms,
+        "plain_ms": (p1 + p2) / 2, "bound_ms": bound, "bound_by": by,
+        "step_instr": instr, "kernel": kern, "turns_ms": [d1, g1, f1, d2],
+        "matrix_general_ms": g1, "matrix_full_ms": f1,
+        "steps_per_char": n_steps / n_chars, "warp_max_steps_mean": warp,
+        "n_cells": tb.n_cells, "separate_slots": sep,
+        "e2e_mbps": n_bytes / wall / 1e6, "stream_mbps": n_e / wall_e / 1e6,
+    }
+    return block, (text_a, want_a)
+
+
+def format_wave(dtt, texts, evs):
+    """The wave's bytes through the native writer, from each lane's
+    (N, 3) events."""
+    counts = np.array([len(e) for e in evs], dtype=np.int32)
+    lens = np.array([len(t) for t in texts], dtype=np.int32)
+    offs = np.zeros(len(texts), dtype=np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    cps = np.frombuffer("".join(texts).encode("utf-32-le"), dtype="<u4")
+    writer = dtt.NativeWriter(dtt.SIMPLE)
+    writer.feed_wave(np.concatenate(evs), counts, cps.astype(np.int32), offs,
+                     lens)
+    return writer.getvalue()
 
 
 def profile_wave(dtt, eng, texts, card, reps=3):
@@ -972,7 +1223,7 @@ def states_read(tok, meta, lengths):
 
 
 def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7, chip,
-                  profile=False):
+                  stream_a, profile=False):
     """Phase 8: (a) the phase-4 wave's texts as one stream of documents
     ending in ``\\x04\\n``, through ``tokenize_stream_pipelined`` (lanes=8192,
     pack_len=0, and the defaults) and the serial ``tokenize_stream``;
@@ -983,15 +1234,11 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7, chip,
     That wave also runs through K1's general and full forms in turns
     (:func:`form_turns`).  Returns K1's launches in the timed runs, the
     hot set's cold share of the untimed run, the wave's K1 times and
-    stream (a) with its oracle output."""
+    stream (a) with its oracle output.  ``stream_a`` is stream (a) with
+    its native oracle output (made in phase 4b)."""
     from datok_tpu_torch.runtime import engine as engine_mod
     tok = eng.tok
-    t0 = time.perf_counter()
-    text_a = "".join(t + "\x04\n" for t in wave_docs)
-    want_a = native_oracle(dtt, eng, text_a)
-    print(f"overlap: stream (a) {len(text_a.encode('utf-8'))} bytes, "
-          f"{len(wave_docs)} documents; its native oracle in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    text_a, want_a = stream_a
     text_b, want_b, _ = stream7
     waves = []
 
@@ -1224,7 +1471,7 @@ def k1_windows(seng, run):
     (card, start ms, end ms), counted from an event recorded on that
     card before the run (windows on one card share a clock)."""
     from datok_tpu_torch.kernels import transduce as kt
-    from datok_tpu_torch.parallel import mesh
+    from datok_tpu_torch.runtime import engine as engine_mod
 
     marks, starts = [], {}
 
@@ -1242,11 +1489,11 @@ def k1_windows(seng, run):
         with torch.cuda.device(c):
             starts[c] = torch.cuda.Event(enable_timing=True)
             starts[c].record()
-    mesh.transduce = timed
+    engine_mod.transduce = timed
     try:
         run()
     finally:
-        mesh.transduce = kt.transduce
+        engine_mod.transduce = kt.transduce
     for c in cards:
         torch.cuda.synchronize(c)
     return [(c, starts[c].elapsed_time(b), starts[c].elapsed_time(e))
@@ -1541,11 +1788,18 @@ def main():
                  "--format=csv,noheader,nounits"], check=True,
                 capture_output=True, text=True).stdout.split()[0]),
             "step_instr": {}}
-    for kern in k1_instances():
-        fewest, static = sass.loop_min_instructions(listing, kern)
-        chip["step_instr"][kern] = fewest
-        print(f"build: transduce: {kern}: step loop {static} instructions, "
-              f"{fewest} on its shortest pass (SASS)", flush=True)
+    instances = sass.k1_instances(listing)
+    want = {(t, f, False) for t in (256, 1024) for f in (False, True)}
+    want.add((256, False, True))
+    if set(instances) != want:
+        raise RuntimeError(f"K1's instantiations {sorted(instances)}, "
+                           f"expected {sorted(want)}")
+    for key, name in sorted(instances.items()):
+        fewest, static = sass.loop_min_instructions(listing, name)
+        chip["step_instr"][k1_key(*key)] = fewest
+        print(f"build: transduce: {k1_key(*key)}: step loop {static} "
+              f"instructions, {fewest} on its shortest pass (SASS)",
+              flush=True)
 
     # 3. kernel vs plain on the same CUDA tensors
     t0 = time.perf_counter()
@@ -1599,6 +1853,10 @@ def main():
     if opts.profile:
         profile_wave(dtt, eng, texts, card)
 
+    # 4b. the DE-size double array on K1's general form over base/check
+    da4b, stream_a = da_phase(dtt, kt, run_machine, eng, texts, texts3, w4,
+                              card, chip)
+
     # 5. the DE model, if present
     if DE_MODEL and os.path.exists(DE_MODEL):
         tok_de = dtt.load_tokenizer_file(DE_MODEL)
@@ -1619,7 +1877,8 @@ def main():
 
     # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
     launches8, cold8, wave8, stream8 = overlap_phase(
-        dtt, kt, eng, eng_hot, card, texts, stream7, chip, opts.profile)
+        dtt, kt, eng, eng_hot, card, texts, stream7, chip, stream_a,
+        opts.profile)
 
     # 9. the corpus runner and the CLI
     corpus9 = corpus_phase(dtt, kt, eng, card, texts)
@@ -1666,6 +1925,7 @@ def main():
         "step_instr": chip["step_instr"],
         "phase8_wave": wave8,
         "phase10": shard10,
+        "da": da4b,
     }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

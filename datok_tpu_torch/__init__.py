@@ -12,6 +12,8 @@ unless the caller names another device.
     from datok_tpu_torch import load_tokenizer_file, BatchEngine
     tok = load_tokenizer_file("tokenizer_de.matok")
     eng = BatchEngine(tok)                       # K1 on the card
+    eng = BatchEngine(load_datok_file("tokenizer_de.datok"),
+                      engine="general")          # K1 over base/check
     eng = ShardedEngine(tok)                     # lanes over every card
     outs = eng.tokenize_batch(["Der alte Mann.", "..."])
     out = tokenize_stream(tok, stream_text, engine=eng).getvalue()
@@ -23,17 +25,20 @@ The same commands as ``datok-tpu``: ``python -m datok_tpu_torch.cli``
 (``tokenize``, ``corpus``, ``convert``; ``--device cuda`` by default).
 """
 
-from .fsa.double_array import DaTokenizer, load_datok_file
+from .fsa.automaton import Automaton
+from .fsa.double_array import DaTokenizer, load_datok_file, parse_datok
+from .fsa.foma import load_foma_file, parse_foma
 from .fsa.io import load_tokenizer_file
-from .fsa.matrix import MatrixTokenizer, load_matrix_file
+from .fsa.matrix import MatrixTokenizer, load_matrix_file, parse_matrix
 from .parallel.distributed import run_corpus_distributed
 from .parallel.mesh import ShardedEngine
 from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
 from .runtime.events import (EV_SENT, EV_TEXT, EV_TOKEN,
                              format_events, replay_events)
-from .runtime.oracle import transduce
-from .runtime.overlap import tokenize_stream_pipelined, waves_pipelined
+from .runtime.oracle import transduce, transduce_reader
+from .runtime.overlap import (events_pipelined, tokenize_stream_pipelined,
+                              waves_pipelined)
 from .runtime.pipeline import tokenize_reader, tokenize_stream
 from .runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
                              SENTENCES, SIMPLE, TOKEN_POS, TOKENS,
@@ -41,6 +46,11 @@ from .runtime.writer import (NEWLINE_AFTER_EOT, SENTENCE_POS,
 from .utils.native import NativeWriter, native_transduce_events
 
 __all__ = [
+    "Automaton",
+    "load_foma_file",
+    "parse_foma",
+    "parse_matrix",
+    "parse_datok",
     "BatchEngine",
     "CorpusRunner",
     "DaTokenizer",
@@ -59,9 +69,11 @@ __all__ = [
     "NEWLINE_AFTER_EOT",
     "SIMPLE",
     "transduce",
+    "transduce_reader",
     "tokenize_stream",
     "tokenize_reader",
     "tokenize_stream_pipelined",
+    "events_pipelined",
     "waves_pipelined",
     "run_corpus_distributed",
     "EV_TOKEN",

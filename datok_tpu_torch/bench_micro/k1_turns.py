@@ -1,0 +1,100 @@
+"""K1's matrix forms of one source tree of the port on the card, for A/B
+runs.
+
+Runs K1 of the port found under ``--root`` (a checkout of this
+repository) on phase 4's wave of ``chip_smoke.py`` (the synthetic
+DE-size model, B=32768 x L=1024, from the root): the full form
+(``transduce``, the engine's) and the general form
+(``transduce_general``), each the mean of ``--n`` launches between CUDA
+events after a warm-up, in turns (full, general, general, full).  It
+also counts the fewest instructions one pass of each instantiation's
+step loop issues (``kernels/sass.py`` on ``cuobjdump -sass``) and
+prints a digest of each form's outputs (events up to each lane's count,
+counts, ``bad``, exit rows, steps), so that two trees can be held equal.
+It uses entry points that every version of the port since the full
+form has, so two trees compare in one call, each in its own process, in
+turns (A, B, B, A)::
+
+    python3 datok_tpu_torch/bench_micro/k1_turns.py --root build/parent
+    python3 datok_tpu_torch/bench_micro/k1_turns.py --root .
+
+Prints one JSON line with the card's name and power limit.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+# an instantiation of K1's kernel template: block size, form, and the
+# tables' layout where the tree has one
+_K1 = re.compile(r"transduce_kernelILi(\d+)ELb([01])E(?:L\w*?6LayoutE([01])E)?")
+
+
+def digest(res) -> str:
+    """SHA-256 of a launch's outputs, each lane's events past its count
+    left out (K1 does not write them)."""
+    ev, counts, bad, state, steps = (x.cpu().numpy() for x in res[:5])
+    keep = np.arange(ev.shape[1])[None, :] < counts[:, None]
+    h = hashlib.sha256()
+    for x in (np.where(keep, ev, 0), counts, bad, state, steps):
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True, help="checkout to run")
+    ap.add_argument("--n", type=int, default=10, help="launches a turn")
+    opts = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(opts.root))
+
+    import chip_smoke as cs
+    from datok_tpu_torch import BatchEngine
+    from datok_tpu_torch.kernels import build, sass
+    from datok_tpu_torch.kernels import transduce as kt
+    from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False: no GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    build.load(build.TRANSDUCE)
+    step_instr = {}
+    listing = sass.cuobjdump(build.TRANSDUCE.path)
+    for name in sass.functions(listing):
+        m = _K1.search(name)
+        if m:
+            key = (f"{m.group(1)}/{'full' if m.group(2) == '1' else 'general'}"
+                   f"/{'da' if m.group(3) == '1' else 'matrix'}")
+            step_instr[key] = sass.loop_min_instructions(listing, name)[0]
+
+    tok = synth_tokenizer(seed=cs.SEED)
+    eng = BatchEngine(tok, device="cuda")
+    texts = cs.wave_texts(tok, *cs.WAVE_SHAPE, synth_text)
+    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    args = (eng.tables, *cs.to_cuda(meta, lengths),
+            eng.max_steps_for(meta.shape[1]))
+    forms = {"full": kt.transduce, "general": kt.transduce_general}
+    turns = {}
+    for form in ("full", "general", "general", "full"):
+        ms, _ = cs.cuda_ms(lambda: forms[form](*args), n=opts.n, warmup=2)
+        turns.setdefault(form, []).append(ms)
+    print(json.dumps({
+        "root": opts.root, "card": card, "B": int(meta.shape[0]),
+        "L": int(meta.shape[1]), "turns_ms": turns,
+        "digest": {f: digest(fn(*args)) for f, fn in forms.items()},
+        "step_instr": step_instr,
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

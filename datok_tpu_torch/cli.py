@@ -71,14 +71,18 @@ def make_flags(args) -> int:
 
 def _engine(tok, args) -> BatchEngine:
     """The batched engine on ``--device``; a device that cannot run is a
-    one-line error before any output."""
+    one-line error before any output.  ``--no-accelerated`` picks the
+    general machine, as it does in ``datok-tpu`` (K1's general form,
+    over a ``.datok`` model's own base and check)."""
     try:
         dev = torch.device(args.device)
     except RuntimeError as e:
         raise ValueError(f"--device {args.device}: {e}") from None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ValueError(f"--device {args.device}: no CUDA device is available")
-    return BatchEngine(tok, device=dev)
+    accelerated = getattr(args, "accelerated", True)
+    return BatchEngine(tok, device=dev,
+                       engine="auto" if accelerated else "general")
 
 
 def cmd_tokenize(args) -> int:
@@ -149,7 +153,8 @@ def main(argv=None) -> int:
                    help="Use the batched engine on --device")
     t.add_argument(
         "--accelerated", action=argparse.BooleanOptionalAction, default=True,
-        help="accepted for datok-tpu command lines; K1 runs either way",
+        help="--no-accelerated runs K1's general form (over a .datok "
+             "model's own layout), as datok-tpu runs its general machine",
     )
 
     c2 = sub.add_parser(

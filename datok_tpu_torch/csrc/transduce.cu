@@ -13,8 +13,18 @@
 // K1 runs the full step (transduce_step.cuh): the TPU kernel's run
 // skip and fused boundaries are part of it, so a step may take a run
 // of letters or a whole token boundary.  The general form is compiled
-// beside it for comparisons (the tests' host build, the smoke run's
-// turns); the engine launches only the full form.
+// beside it, over the matrix and over a double array: an engine built
+// with engine="general" launches it (a double-array model, which has
+// no per-state words, only ever runs it), the default engine the full
+// form.  The double-array instance is the counterpart of the JAX
+// general machine over DoubleArrayRep (jax_engine.py:_run_machine,
+// :702, an XLA while loop of gathers): a loop of torch ops would cost
+// what the plain machine does, so the loop folds into the kernel.  Its
+// step reads base, then check and base again, one dependent load more
+// than a matrix step; base and check of a DE-size model (24.4 MB)
+// stay in the 50 MB L2 as the matrix does.  It has no hot set and
+// takes up to 256 threads a block, as many blocks as the lanes need
+// (no shared memory holds it to one block an SM).
 //
 // What bounds it on this card: each step is a chain of the state's
 // cells, whose loads wait for the step before, and integer selects, so
@@ -73,8 +83,8 @@ struct Outs {
   unsigned long long *cold, *cold_total;
 };
 
-// ``kFull`` picks the step's form.
-template <int kThreads, bool kFull>
+// ``kFull`` picks the step's form, ``kLayout`` the tables' layout.
+template <int kThreads, bool kFull, dt::Layout kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
 transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
                  int32_t n_hot_quads, const int32_t* __restrict__ meta,
@@ -96,7 +106,7 @@ transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
   unsigned long long cold = 0, steps = 0;
   for (int32_t lane = blockIdx.x * blockDim.x + threadIdx.x; lane < B;
        lane += gridDim.x * blockDim.x) {
-    cold += dt::run_lane<kFull>(
+    cold += dt::run_lane<kFull, kLayout>(
         m, meta + (int64_t)lane * L, L, lengths[lane], entries[lane],
         stops[lane] != 0, max_steps, o.events + (int64_t)lane * max_steps,
         o.counts + lane, o.bad + lane, o.state + (int64_t)lane * 6,
@@ -122,13 +132,14 @@ transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
   }
 }
 
-template <int kThreads, bool kFull>
+template <int kThreads, bool kFull,
+          dt::Layout kLayout = dt::Layout::Matrix>
 cudaError_t launch(int grid, int threads, size_t smem, cudaStream_t stream,
                    const dt::Model& m, const uint4* hot_rows,
                    int32_t n_hot_quads, const int32_t* meta, int32_t L,
                    int32_t B, const int32_t* lengths, const int32_t* entries,
                    const uint8_t* stops, int32_t max_steps, const Outs& o) {
-  auto kernel = transduce_kernel<kThreads, kFull>;
+  auto kernel = transduce_kernel<kThreads, kFull, kLayout>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -157,6 +168,14 @@ cudaError_t launch_form(bool full, int grid, int threads, size_t smem,
                                  stops, max_steps, o);
 }
 
+// The launch's SMs, the first step of every entry.
+cudaError_t sm_count(int* n_sm) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+}
+
 }  // namespace
 
 // Launches K1 on ``stream``; returns a CUDA error code (0 = launched).
@@ -177,10 +196,8 @@ extern "C" int dt_transduce_launch(
   cudaStream_t strm = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), strm);
   if (e != cudaSuccess || B <= 0) return (int)e;
-  int dev = 0, n_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int n_sm = 0;
+  e = sm_count(&n_sm);
   if (e != cudaSuccess) return (int)e;
   int per_sm = (B + n_sm - 1) / n_sm;
   int threads = ((per_sm + 31) / 32) * 32;
@@ -188,7 +205,8 @@ extern "C" int dt_transduce_launch(
   int grid = (B + threads - 1) / threads;
   if (grid > n_sm) grid = n_sm;
   dt::Model m{table, hot_rows, hot_of, st, n_st, (int32_t)n_cells, S,
-              max_sym, eps, unknown, identity, n_hot_of, root_h, tag_mask};
+              max_sym, eps, unknown, identity, n_hot_of, root_h, tag_mask,
+              nullptr, 0};
   Outs o{events, counts, state, steps, bad,
          reinterpret_cast<unsigned long long*>(cold),
          reinterpret_cast<unsigned long long*>(cold_total)};
@@ -204,4 +222,36 @@ extern "C" int dt_transduce_launch(
                                  rows, quads, meta, L, B, lengths, entries,
                                  stops, max_steps, o);
   return (int)e;
+}
+
+// Launches K1's general form over a double array (``base`` and
+// ``check``, ``n_cells`` < 2^28 cells each, ``size`` the size field)
+// on ``stream``; the other arguments and the return are
+// dt_transduce_launch's.  Blocks of ceil(B / SMs) lanes rounded up to a
+// warp, at most 256, as many as the lanes need.
+extern "C" int dt_transduce_da_launch(
+    const uint32_t* base, const uint32_t* check, int64_t n_cells,
+    int32_t size, int32_t eps, int32_t unknown, int32_t identity,
+    const int32_t* meta, int32_t L, int32_t B, const int32_t* lengths,
+    const int32_t* entries, const uint8_t* stops, int32_t max_steps,
+    int32_t* events, int32_t* counts, uint8_t* bad, int32_t* state,
+    int32_t* steps, int64_t* cold, int64_t* cold_total, void* stream) {
+  cudaStream_t strm = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), strm);
+  if (e != cudaSuccess || B <= 0) return (int)e;
+  int n_sm = 0;
+  e = sm_count(&n_sm);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = (B + n_sm - 1) / n_sm;
+  int threads = ((per_sm + 31) / 32) * 32;
+  if (threads > kSmallThreads) threads = kSmallThreads;
+  int grid = (B + threads - 1) / threads;
+  dt::Model m{base, nullptr, nullptr, nullptr, 0, (int32_t)n_cells, 0, 0,
+              eps, unknown, identity, 0, 0, 0u, check, size};
+  Outs o{events, counts, state, steps, bad,
+         reinterpret_cast<unsigned long long*>(cold),
+         reinterpret_cast<unsigned long long*>(cold_total)};
+  return (int)launch<kSmallThreads, false, dt::Layout::DoubleArray>(
+      grid, threads, 0, strm, m, nullptr, 0, meta, L, B, lengths, entries,
+      stops, max_steps, o);
 }

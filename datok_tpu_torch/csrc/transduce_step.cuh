@@ -10,8 +10,20 @@
 //   backtrack, ε flush, re-read consume" is one step (a fused boundary,
 //   :367-391, 509-548; a sentence end where no token is pending).  The
 //   engine always launches it;
-// - the general form, one character or one backtrack a step, which
-//   the tests and the smoke run's turns compare it with.
+// - the general form, one character or one backtrack a step: the
+//   JAX general machine's (_run_machine, :702-735).  An engine built
+//   with engine="general" launches it, and a double-array model runs
+//   only it.
+// The table's layout is the step's second template argument:
+// - the dense matrix (MatrixRep, jax_engine.py:104-130), whose cell
+//   (a-1)*S + t holds the target;
+// - the double array (DoubleArrayRep, :133-171), general form only: a
+//   double array has no per-state words, and the JAX package never
+//   skips or fuses on one.  The transition reads base[t0], then
+//   check[tc] and the separate-state hop's base[tc]; the probe reads
+//   base[t], then check[base + eps].  The step reads one base cell, at
+//   the state whose row it reads, so the probe and the transition of a
+//   read share it, and the three cells after it load at once.
 // Each predicate below is one of _make_step's disjoint masks, and the
 // comments name them.  The full form's gates are the JAX kernel's.  It
 // fuses every composition they let through, where the TPU kernel fuses
@@ -71,15 +83,24 @@ constexpr int32_t ST_LC = 1 << 30;
 constexpr uint32_t EV_TOKEN = 1, EV_SENT = 2, EV_TEXT = 3;
 constexpr int PACK_POS_BITS = 15;
 constexpr uint32_t FIRSTBIT = 0x80000000u;
+constexpr uint32_t RESTBIT = 0x3FFFFFFFu;  // a double array's ids and offsets
 constexpr int32_t ROOT = 1;
 // tagged cells (runtime/hot.py): the target's hot index + 1
 constexpr int HOT_SHIFT = 20;
 
+// The tables' layout, the step's second template argument.
+enum class Layout { Matrix, DoubleArray };
+
 // Dense matrix model: cell (a-1)*S + t, 0 = no arc, FIRSTBIT = nontoken.
 // Cell indices are 32-bit: the wrapper takes tables of fewer than 2^31
-// cells.
+// cells.  A double array (Layout::DoubleArray) keeps base in ``table``
+// and check in ``check``, n_cells cells each (fewer than 2^28: the
+// wrapper refuses more, since a slot must fit an entry context), its
+// size field in ``size``, and none of the hot set or the per-state
+// words.
 struct Model {
-  const uint32_t* table;  // the whole table; tagged when tag_mask != 0
+  const uint32_t* table;  // the whole table (a double array's base);
+                          // tagged when tag_mask != 0
   const uint32_t* hot;    // hot rows: cell (h-1)*max_sym + (a-1)
   const int32_t* hot_of;  // (n_hot_of,) hot index + 1 per state, 0 = cold
   const int32_t* st;      // (n_st,) per-state words (the full form)
@@ -88,6 +109,8 @@ struct Model {
   int32_t S, max_sym, eps, unknown, identity;
   int32_t n_hot_of, root_h;
   uint32_t tag_mask;  // bits 20..29 with a hot set, else 0
+  const uint32_t* check;  // a double array's check, else unused
+  int32_t size;  // a double array's size field (check[1] & RESTBIT)
 };
 
 struct Lane {
@@ -130,6 +153,44 @@ DT_HD uint32_t row_cell(const Model& m, int32_t h, int32_t t, int32_t a) {
 DT_HD uint32_t eps_cell(const Model& m, int32_t h, int32_t t) {
   if (m.eps >= 1 && m.eps <= m.max_sym) return row_cell(m, h, t, m.eps);
   return cell(m, (int64_t)(m.eps - 1) * m.S + t);
+}
+
+// Cell i of a double array's base or check (``arr``); 0 outside the
+// arrays, as the mode="fill" gathers give.  ``i`` is 64-bit: a corrupt
+// base may put base + a past 2^31.
+DT_HD uint32_t da_cell(const Model& m, const uint32_t* arr, int64_t i) {
+  return (i >= 0 && i < m.n_cells) ? arr[i] : 0u;
+}
+
+// A double array's ε probe and transition (DoubleArrayRep.eps_avail
+// and .transition, jax_engine.py:148-171) at state ``u``, the state
+// whose row the step reads: t on a new character (the probe reads
+// only then, and a read's t0 is t), t0 otherwise.  One base cell, then
+// the probe's check cell, the transition's check cell (no a == 0
+// guard, :158) and the separate-state hop's base cell at the clipped
+// index (datok.go:1056-1063), all three at once.
+struct DaFetch {
+  bool eps_here, valid, nontok;
+  int32_t t_next;
+};
+
+DT_HD DaFetch da_fetch(const Model& m, int32_t u, int32_t t, int32_t t0,
+                       int32_t a) {
+  const int64_t bu = (int64_t)(da_cell(m, m.table, u) & RESTBIT);
+  const int64_t te = bu + m.eps;
+  const int64_t tc = bu + a;
+  const bool in_rng = tc >= 0 && tc < m.n_cells;
+  const int64_t tc_c = tc < 0 ? 0 : (in_rng ? tc : m.n_cells - 1);
+  const uint32_t chk_e = da_cell(m, m.check, te);
+  const uint32_t chk = in_rng ? m.check[tc] : 0u;
+  const uint32_t b_t = m.table[tc_c];
+  DaFetch d;
+  // the probe has no size test, the transition has (:148-153)
+  d.eps_here = te < m.n_cells && (int32_t)(chk_e & RESTBIT) == t;
+  d.valid = tc <= m.size && in_rng && (int32_t)(chk & RESTBIT) == t0;
+  d.nontok = (chk & FIRSTBIT) != 0;
+  d.t_next = (b_t & FIRSTBIT) ? (int32_t)(b_t & RESTBIT) : (int32_t)tc;
+  return d;
 }
 
 // The per-state word of state t; 0 (no ε, not absorbing) outside 0..S.
@@ -182,9 +243,12 @@ DT_HD bool live(const Lane& s) { return !s.done || s.pend != 0; }
 // whose lanes all read the same text the branches win (PERF.md).
 // ``row`` is the lane's meta row of ``L`` words (positions are clipped
 // to [0, L-1]).  A step that reads the row of a cold state counts in
-// ``n_cold``.  ``kFull`` picks the form (the header above).
-template <bool kFull>
+// ``n_cold``.  ``kFull`` picks the form and ``kLayout`` the tables'
+// layout (the header above).
+template <bool kFull, Layout kLayout>
 DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
+  constexpr bool kDA = kLayout == Layout::DoubleArray;
+  static_assert(!(kFull && kDA), "the full form needs the dense matrix");
   // m_drain: a lane with queued events drains one and does nothing else
   const bool drain = s.pend != 0;
   const bool running = !s.done && !drain;
@@ -213,12 +277,17 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
     s.t0 = s.t;
     s.h0 = s.h;
   }
+  // a double array's probe and transition, at the state whose row the
+  // step reads (none on the matrix)
+  const DaFetch d = kDA ? da_fetch(m, new0 ? s.t : s.t0, s.t, s.t0, s.a)
+                        : DaFetch{};
   // the ε probe (read) and the epilogue's chase share one predicate on
   // t; the transition cell comes from the same row on a read
   const bool eps_here =
-      kFull ? (word & ST_EPS) != 0 : eps_cell(m, s.h, s.t) != 0;
+      kDA ? d.eps_here
+          : (kFull ? (word & ST_EPS) != 0 : eps_cell(m, s.h, s.t) != 0);
   const bool a_in = s.a > 0 && s.a <= m.max_sym;
-  const uint32_t traw = a_in ? row_cell(m, s.h0, s.t0, s.a) : 0u;
+  const uint32_t traw = (!kDA && a_in) ? row_cell(m, s.h0, s.t0, s.a) : 0u;
   // the fused boundary (m_bf, m_bs): no arc at t, an ε arc to e whose
   // row takes a; the gates keep EOT and the stale-ok identity retry
   // (f1) on the slow path.  The consume cell from e is loaded beside
@@ -249,13 +318,14 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
 
   // transition outcome; f2 reads the post-probe backtrack register
   const bool trans = (read && !skip && !bb) || old;
-  const bool fail = trans && traw == 0;
+  const bool fail = trans && (kDA ? !d.valid : traw == 0);
   const bool f1 = fail && !s.ok && s.a == m.identity;  // retry unknown
   const bool f2 = fail && !f1 && s.a != m.eps && s.eps_s != 0;  // ε back
   const bool f3 = fail && !f1 && !f2;  // force-emit, restart at the root
-  const bool succ = trans && traw != 0;
-  const bool nontok = (traw & FIRSTBIT) != 0;
-  const int32_t t_succ = (int32_t)(traw & ~m.tag_mask & 0x7FFFFFFFu);
+  const bool succ = trans && (kDA ? d.valid : traw != 0);
+  const bool nontok = kDA ? d.nontok : (traw & FIRSTBIT) != 0;
+  const int32_t t_succ =
+      kDA ? d.t_next : (int32_t)(traw & ~m.tag_mask & 0x7FFFFFFFu);
   const int32_t h_succ = (int32_t)((traw & m.tag_mask) >> HOT_SHIFT);
   const bool is_eps = s.a == m.eps;
   const bool flush = succ && is_eps && has_pending;
@@ -363,7 +433,7 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
 // events in step order to ev_row (capacity max_steps: at most one event
 // per step), the count, bad, the state row (ctx, ckpt, b, c,
 // n_backtrack, n_force) and the step count.  Returns its cold steps.
-template <bool kFull>
+template <bool kFull, Layout kLayout>
 DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
                        int32_t length, int32_t entry, bool stop,
                        int32_t max_steps, int32_t* ev_row, int32_t* count,
@@ -372,7 +442,7 @@ DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
   init_lane(s, m, row, L, entry, length, stop);
   int32_t n = 0, k = 0;
   while (k < max_steps && live(s)) {
-    int32_t e = step<kFull>(s, m, row, L);
+    int32_t e = step<kFull, kLayout>(s, m, row, L);
     if (e != 0) ev_row[n++] = e;
     ++k;
   }

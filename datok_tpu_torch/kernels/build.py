@@ -67,16 +67,24 @@ def _src(*names: str) -> Tuple[str, ...]:
 _TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _p,
                    _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _i32,
                    _i32, _p, _p, _p, _i32, _p, _p, _p, _p, _p, _p, _p)
+# base, check, n_cells, size, eps, unknown, identity, meta, L, B, lengths,
+# entries, stops, max_steps, events, counts, bad, state, steps, cold,
+# cold_total
+_TRANSDUCE_DA_ARGS = (_p, _p, _i64) + (_i32,) * 4 + (_p, _i32, _i32) + (
+    _p,) * 3 + (_i32,) + (_p,) * 7
 # a, h, table, W, n_planes, select, B, out
 _HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)
 # ring, R, B, planes, H, K, h0, ys, h_out
 _MICRO_FUSED_ARGS = (_p, _i32, _i32, _p, _i32, _i32, _p, _p, _p)
 
 TRANSDUCE = Lib("transduce", _src("transduce.cu", "transduce_step.cuh"),
-                (("dt_transduce_launch", _TRANSDUCE_ARGS + (_p,)),), True)
+                (("dt_transduce_launch", _TRANSDUCE_ARGS + (_p,)),
+                 ("dt_transduce_da_launch", _TRANSDUCE_DA_ARGS + (_p,))),
+                True)
 TRANSDUCE_HOST = Lib(
     "transduce_host", _src("transduce_host.cpp", "transduce_step.cuh"),
-    (("dt_transduce_host", _TRANSDUCE_ARGS),), False)
+    (("dt_transduce_host", _TRANSDUCE_ARGS),
+     ("dt_transduce_da_host", _TRANSDUCE_DA_ARGS)), False)
 # a, h, out, B, table, stream
 HOT_FETCH = Lib("hot_fetch", _src("hot_fetch.cu", "hot_fetch_lane.cuh"),
                 (("dt_hot_fetch_launch", (_p, _p, _p, _i32, _p, _p)),), True)

@@ -116,6 +116,24 @@ def loop_min_instructions(sass: str, function: str) -> Tuple[int, int]:
     return min_path(code, head, latch), static
 
 
+# K1's kernel template (csrc/transduce.cu): transduce_kernel<threads,
+# full, dt::Layout>, the layout mangled as an enum literal (L...E)
+_K1 = re.compile(r"transduce_kernelILi(\d+)ELb([01])EL\w*?6LayoutE([01])E")
+
+
+def k1_instances(sass: str) -> dict:
+    """K1's instantiations in a listing: ``{(threads, full, double_array):
+    mangled name}`` (``full`` and ``double_array`` as bools)."""
+    out = {}
+    for name in functions(sass):
+        m = _K1.search(name)
+        if m:
+            out[(int(m.group(1)), m.group(2) == "1", m.group(3) == "1")] = name
+    if not out:
+        raise ValueError("no instantiation of K1's kernel in the listing")
+    return out
+
+
 def cuobjdump(lib_path: str) -> str:
     """``cuobjdump -sass`` of a built library (the CUDA toolkit's)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"

@@ -13,8 +13,12 @@ write row blocks of one buffer.  ``transduce.launches`` counts K1
 launches.
 
 ``transduce_general`` runs K1's general form, one character or one
-backtrack a step, the same way: it is there to compare the two forms
-(the tests, the smoke run's turns), and no engine calls it.
+backtrack a step, the same way, over a matrix model's table or a
+double-array model's base and check (the counterpart of the JAX
+general machine, ``jax_engine._run_machine`` over ``MatrixRep`` or
+``DoubleArrayRep``); an engine built with ``engine="general"``
+launches it.  ``transduce`` takes only the matrix: the full form reads
+per-state words, which a double array does not have.
 ``transduce_host`` runs either form of K1's step header built for the
 host (tests).
 """
@@ -97,6 +101,43 @@ def _check_out(out, B: int, max_steps: int, dev):
                 f"{dev}, got {tuple(o.shape)} {o.dtype} on {o.device}")
 
 
+# a double-array state id is a slot id, and an entry context keeps 28
+# bits of it (``entries & 0x0FFFFFFF``, jax_engine.py:1918)
+DA_MAX_CELLS = 1 << 28
+
+
+def _check_layout(tb: Tables, full: bool) -> None:
+    """Refuse tables the form does not take: the full form needs a
+    matrix, and a double array must fit the entry contexts."""
+    if tb.kind == "DATOK":
+        if full:
+            raise ValueError(
+                "K1's full form needs the dense matrix layout "
+                "(tok.to_matrix()); a double array runs the general form "
+                "(transduce_general)")
+        if not 2 <= tb.n_cells < DA_MAX_CELLS:
+            raise ValueError(
+                f"a double array of {tb.n_cells} cells: K1 takes 2 to "
+                f"2^28 - 1, so that every slot fits an entry context")
+    elif tb.n_cells >= 1 << 31:
+        raise ValueError(f"{tb.n_cells} cells: K1 takes fewer than 2^31")
+
+
+def _da_args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
+             cold_total):
+    """The double-array entries' arguments (no hot set, no per-state
+    words), the stream left out."""
+    base, check = tb.arrays
+    B, L = meta.shape
+    return [
+        base.data_ptr(), check.data_ptr(), tb.n_cells, tb.size, tb.eps,
+        tb.unknown, tb.identity, meta.data_ptr(), L, B, lengths.data_ptr(),
+        entries.data_ptr(), stops.data_ptr(), max_steps,
+        *(o.data_ptr() for o in outs),
+        None if cold_total is None else cold_total.data_ptr(),
+    ]
+
+
 def _args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
           cold_total, full: bool):
     hot = tb.hot
@@ -129,6 +170,7 @@ def _run(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total,
     tensors or K1 on the card; returns the outputs and whether K1
     launched."""
     B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
+    _check_layout(tb, full)
     dev = meta.device
     if out is not None:
         _check_out(out, B, max_steps, dev)
@@ -144,19 +186,19 @@ def _run(tb: Tables, meta, lengths, entries, stops, max_steps, cold_total,
         return tuple(out), False
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA devices, not {dev}")
-    if tb.kind != "MATOK":
-        raise ValueError("K1 takes the dense matrix layout (tok.to_matrix())")
-    if tb.n_cells >= 1 << 31:
-        raise ValueError(f"{tb.n_cells} cells: K1 takes fewer than 2^31")
     lib = build.load(build.TRANSDUCE)
     outs = outputs(B, max_steps, dev) if out is None else tuple(out)
+    if tb.kind == "DATOK":
+        launch = lib.dt_transduce_da_launch
+        args = _da_args(tb, meta, lengths, entries, stops, max_steps, outs,
+                        cold_total)
+    else:
+        launch = lib.dt_transduce_launch
+        args = _args(tb, meta, lengths, entries, stops, max_steps, outs,
+                     cold_total, full)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dt_transduce_launch(
-            *_args(tb, meta, lengths, entries, stops, max_steps, outs,
-                   cold_total, full),
-            ctypes.c_void_p(stream),
-        )
+        rc = launch(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     return outs, True
@@ -166,7 +208,8 @@ def transduce(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
               entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
               cold_total: Optional[torch.Tensor] = None,
               out: Optional[Sequence[torch.Tensor]] = None):
-    """Run every lane of the wave with the full step; see
+    """Run every lane of the wave with the full step (a matrix model's
+    tables; a double array raises); see
     ``run_machine`` for the arguments and the returned ``(events,
     counts, bad, state, steps, cold)``.  On a CUDA device only
     ``events[i, :counts[i]]`` is written.  ``cold_total``, a (2,) int64
@@ -190,8 +233,9 @@ def transduce_general(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
                       cold_total: Optional[torch.Tensor] = None,
                       out: Optional[Sequence[torch.Tensor]] = None):
     """:func:`transduce` with K1's general step (on the CPU the plain
-    machine's), to compare the forms; ``transduce_general.launches``
-    counts its launches."""
+    machine's), over a matrix model's tables or a double array's (fewer
+    than 2^28 cells); ``transduce_general.launches`` counts its
+    launches, over either layout."""
     res, launched = _run(tb, meta, lengths, entries, stops, max_steps,
                          cold_total, out, False)
     transduce_general.launches += launched
@@ -208,19 +252,24 @@ def transduce_host(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
     """K1's step header compiled for the host with g++ (tests only:
     checks the kernel's C++ step logic, hot rows and tags included, on
     machines without a GPU), with the step of ``form`` (``"full"`` or
-    ``"general"``).  CPU tensors in, the same outputs as
-    :func:`transduce` out."""
+    ``"general"``; a double array takes only the general one).  CPU
+    tensors in, the same outputs as :func:`transduce` out."""
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     B, L = _check(tb, meta, lengths, entries, stops, max_steps, cold_total)
-    if meta.device.type != "cpu" or tb.kind != "MATOK":
-        raise ValueError("the host build takes CPU tensors of a matrix model")
+    full = form == "full"
+    _check_layout(tb, full)
+    if meta.device.type != "cpu":
+        raise ValueError("the host build takes CPU tensors")
     lib = build.load(build.TRANSDUCE_HOST)
     outs = outputs(B, max_steps, meta.device)
-    rc = lib.dt_transduce_host(
-        *_args(tb, meta, lengths, entries, stops, max_steps, outs, cold_total,
-               form == "full")
-    )
+    if tb.kind == "DATOK":
+        rc = lib.dt_transduce_da_host(*_da_args(
+            tb, meta, lengths, entries, stops, max_steps, outs, cold_total))
+    else:
+        rc = lib.dt_transduce_host(*_args(
+            tb, meta, lengths, entries, stops, max_steps, outs, cold_total,
+            full))
     if rc != 0:
         raise RuntimeError(f"host build returned {rc}")
     return outs

@@ -4,17 +4,18 @@ Counterpart of datok_tpu/parallel/mesh.py.  The corpus lanes are
 data-parallel across devices; the transition table is replicated (12.6
 MB for the DE matrix); the shards exchange nothing until their corpus
 counters are summed, which is what ``psum`` does in the JAX module.
-Each shard is one K1 launch (:func:`~datok_tpu_torch.kernels.transduce.transduce`)
-over a contiguous block of lanes, on a CUDA stream of its own, so the
-shards run at once, also when several of them share one card; on the
-CPU each shard is one run of the plain machine.
+Each shard is one K1 launch in the engine's form
+(:func:`~datok_tpu_torch.kernels.transduce.transduce`, or
+:func:`~datok_tpu_torch.kernels.transduce.transduce_general` with
+``engine="general"``, which :class:`BatchEngine` takes) over a
+contiguous block of lanes, on a CUDA stream of its own, so the shards
+run at once, also when several of them share one card; on the CPU each
+shard is one run of the plain machine.
 
 What the JAX module has and this one does not, and why:
 
 * ``mesh`` (a ``jax.sharding.Mesh``): the shards are a plain list of
   torch devices, ``devices``, one a shard;
-* ``engine=`` (general, hot or Pallas machine): K1 is the one device
-  machine of the port;
 * ``kernel_bl``: K1 has no lane block (it runs one lane a thread), so
   the lane quantum is the shard count alone;
 * ``per_wave``: the port has no per-wave hot specs (ROADMAP B4).
@@ -28,7 +29,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.transduce import outputs, transduce
+from ..kernels.transduce import outputs
 from ..runtime.engine import BatchEngine
 from ..runtime.events import EV_SENT, EV_TEXT, EV_TOKEN
 from ..runtime.rep import tables_from_tokenizer, with_hot
@@ -185,6 +186,7 @@ class ShardedEngine(BatchEngine):
         ev, counts, bad, state, steps, _ = outputs(B, max_steps, dev)
         cold = torch.empty((n, 2), dtype=torch.int64, device=dev)
         cur = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        kernel = self._kernel()
         parts, remote = [], []
         for s, (d, st) in enumerate(zip(self.devices, self._streams)):
             lo, hi = s * per, (s + 1) * per
@@ -202,8 +204,8 @@ class ShardedEngine(BatchEngine):
                     # memory of the caller's stream, used on the shard's
                     for x in ins + out:
                         x.record_stream(st)
-                res = transduce(self._tables[d], *ins, max_steps,
-                                cold_total=self._cold[d], out=out)
+                res = kernel(self._tables[d], *ins, max_steps,
+                             cold_total=self._cold[d], out=out)
             parts.append((res[0], res[1], ins[1], res[3], res[4], res[5]))
             if d != dev:
                 remote.append((lo, hi, d, st, res))

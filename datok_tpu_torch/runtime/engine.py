@@ -5,9 +5,12 @@ Counterpart of ``BatchEngine`` (datok_tpu/runtime/jax_engine.py:1600-
 native wave encode (``SymbolEncoder.encode_batch``, with the skip class
 of the model's run skip), the device machine
 (:func:`datok_tpu_torch.kernels.transduce.transduce`: K1 on a CUDA
-device, the plain machine on the CPU, both with the full step) on the
-encoder's (B, L) meta as it is, the copy of the compact event rows to the host, host decode, and
-exact host repair of lanes that ran out of their step budget.
+device, the plain machine on the CPU, both with the full step; with
+``engine="general"`` :func:`~datok_tpu_torch.kernels.transduce.transduce_general`,
+the general step over the model's own layout) on the encoder's (B, L)
+meta as it is, the copy of the compact event rows to the host, host
+decode, and exact host repair of lanes that ran out of their step
+budget.
 Formatting goes through ``TokenWriter`` (or its native twin).  Asked
 for one, the engine chooses K1's hot set once, as the JAX engine does
 (:mod:`datok_tpu_torch.runtime.hot`); it counts the steps K1 spent on
@@ -23,7 +26,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..kernels.transduce import transduce
+from ..kernels.transduce import transduce, transduce_general
 from .decode import decode_events_compact
 from .encode import SymbolEncoder
 from .hot import default_profile_texts, hot_capacity, profile_hot_states
@@ -34,13 +37,42 @@ from .repair import transduce_doc_exact
 from .writer import SIMPLE
 
 
+# the JAX engine's values (jax_engine.py:1642-1677); "hot" has none here
+ENGINES = ("auto", "pallas", "general", "hot")
+
+# why engine="hot" has no counterpart (ROADMAP A)
+NO_HOT_MACHINE = (
+    "engine='hot' is the JAX package's XLA hot machine (_run_machine_hot: "
+    "one-hot matrix products over a profiled hot state set, which stand "
+    "in for the TPU's serial gathers); the port has no counterpart: K1 "
+    "reads any cell of the table with a load, from L2 (hot_size= keeps "
+    "hot rows in shared memory)")
+
+
 class BatchEngine:
     """Batched tokenization of many texts as parallel lanes.
 
     ``device`` is a torch device: ``"cuda"`` (the default) runs K1 and
-    raises when no card is present; ``"cpu"`` runs the plain machine.  A ``.datok``
-    model is converted to the dense matrix layout, which K1 needs.
+    raises when no card is present; ``"cpu"`` runs the plain machine.
     ``steps_factor`` sets each lane's step budget (:meth:`max_steps_for`).
+
+    ``engine`` picks the device machine, with the JAX engine's values:
+
+    - ``"auto"`` (the default): a ``.datok`` model is converted to the
+      dense matrix layout and the machine runs K1's full step (the TPU
+      kernel's); when the conversion fails, the engine warns and runs
+      the general step over the double array, on the card;
+    - ``"pallas"``: the full step, which needs the matrix; a failed
+      conversion raises;
+    - ``"general"``: the general step (one character or backtrack a
+      step; the JAX general machine) over the model's own layout: base
+      and check for a ``.datok`` model, the table for a ``.matok`` one.
+      A double array keeps the model's sub-second load and its smaller
+      tables where the dense table would not fit;
+    - ``"hot"`` raises (:data:`NO_HOT_MACHINE`).
+
+    :attr:`engine` holds the machine that runs: ``"pallas"`` or
+    ``"general"``.
 
     ``hot_size`` is the size of K1's hot set, the states whose rows K1
     keeps in shared memory: 0 (the default) keeps none and K1 reads
@@ -50,12 +82,13 @@ class BatchEngine:
     memory holds (:func:`hot_capacity`, 339 states at 171 symbols); an
     int takes that many.  On an H100 the hot set made K1 slower on every
     wave of mixed text (PERF.md), hence the default.  A model whose cells
-    cannot carry the tags (2^20 states or more) gets none.  The hot set
-    changes where K1 reads cells, never its results.
+    cannot carry the tags (2^20 states or more) gets none, and so does a
+    double array.  The hot set changes where K1 reads cells, never its
+    results.
     """
 
     def __init__(self, tok, device="cuda", steps_factor: float = 2.0,
-                 hot_size: Union[int, str] = 0):
+                 hot_size: Union[int, str] = 0, engine: str = "auto"):
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -65,22 +98,31 @@ class BatchEngine:
                 )
         elif device.type != "cpu":
             raise ValueError(f"unsupported device {device}")
-        if tok.type() == "DATOK":
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got "
+                             f"{engine!r}")
+        if engine == "hot":
+            raise ValueError(NO_HOT_MACHINE)
+        if tok.type() == "DATOK" and engine != "general":
             # the conversion is runtime-equivalent (jax_engine.py:1644-1665)
             try:
                 tok = tok.to_matrix()
             except Exception as e:
-                if device.type == "cuda":
+                # an explicitly requested full step must not silently
+                # downgrade to the general one
+                if engine == "pallas":
                     raise RuntimeError(
-                        "K1 needs the dense matrix layout but to_matrix() "
-                        f"failed: {e}"
+                        f"engine={engine!r} requires the dense matrix "
+                        f"layout but to_matrix() failed: {e}"
                     ) from e
                 warnings.warn(
-                    f"double-array → matrix conversion failed ({e}); the "
-                    "plain machine runs the double array",
+                    f"double-array → matrix conversion failed ({e}); "
+                    "falling back to the serial-gather engine",
                     RuntimeWarning,
                     stacklevel=2,
                 )
+        self.engine = ("pallas" if tok.type() == "MATOK"
+                       and engine != "general" else "general")
         self.tok = tok
         self.device = device
         self.steps_factor = steps_factor
@@ -99,8 +141,10 @@ class BatchEngine:
         self.hot_size = self.tables.hot.H if self.tables.hot else 0
         # meta's run lengths must count the skip class the per-state
         # words were built with (jax_engine.py:1741-1748): with another
-        # class a skip would be wrong, not merely slower
-        self.encoder = SymbolEncoder(tok, lc_mask=self.tables.lc_mask)
+        # class a skip would be wrong, not merely slower; the general
+        # step reads no run lengths (jax_engine.py:1749)
+        self.encoder = (SymbolEncoder(tok) if self.engine == "general"
+                        else SymbolEncoder(tok, lc_mask=self.tables.lc_mask))
         # (steps whose state was cold, all steps): of the last launch,
         # and summed over launches since reset_cold()
         self._last_cold: Optional[torch.Tensor] = None
@@ -144,9 +188,14 @@ class BatchEngine:
             )
         return self._run(meta, lengths, entries, stops, self.max_steps_for(L))
 
+    def _kernel(self):
+        """The wrapper of the engine's form of K1 (looked up at each
+        launch, so that a caller may wrap the module's function)."""
+        return transduce_general if self.engine == "general" else transduce
+
     def _run(self, meta, lengths, entries, stops, max_steps: int):
         """One launch of the device machine over the wave."""
-        *out, self._last_cold = transduce(
+        *out, self._last_cold = self._kernel()(
             self.tables, meta, lengths, entries, stops, max_steps,
             cold_total=self._cold_total)
         return tuple(out)

@@ -25,20 +25,30 @@ from torch_twins import jax_twin
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ABBREV, SEED = 200, 7
 KINDS = ["matok", "datok", "noeot"]
+# the corpus runner also on the .datok model with an engine="general"
+# engine, which keeps the double array (the CLI's --no-accelerated runs
+# it in the CLI tests)
+RUNNER_KINDS = KINDS + ["datok_general"]
+ENGINE = {"datok_general": "general"}
 
 
 @pytest.fixture(scope="module")
 def models():
+    da = synth_datok(N_ABBREV, SEED)
     return {
         "matok": synth_tokenizer(N_ABBREV, SEED),
-        "datok": synth_datok(N_ABBREV, SEED),
+        "datok": da,
         "noeot": synth_tokenizer(N_ABBREV, SEED, eot=False),
+        "datok_general": da,
     }
 
 
 @pytest.fixture(scope="module")
 def engines(models):
-    return {k: BatchEngine(m, device="cpu") for k, m in models.items()}
+    engs = {k: BatchEngine(m, device="cpu", engine=ENGINE.get(k, "auto"))
+            for k, m in models.items()}
+    assert engs["datok_general"].tables.kind == "DATOK"
+    return engs
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +77,7 @@ def _out_hashes(out_dir):
     return {p: e["out"] for p, e in m["files"].items()}
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", RUNNER_KINDS)
 def test_corpus_resume_matches_jax(models, engines, jax_engines, tmp_path,
                                    kind):
     """tests/test_corpus.py:7-36 on both runners: outputs, counts and the
@@ -106,7 +116,7 @@ def test_corpus_resume_matches_jax(models, engines, jax_engines, tmp_path,
 
 
 @pytest.mark.parametrize("pack_len", ["auto", 0])
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", RUNNER_KINDS)
 def test_corpus_shared_waves_fresh_chains(models, engines, jax_engines,
                                           tmp_path, kind, pack_len):
     """tests/test_corpus.py:65-108: files share waves, but each file's

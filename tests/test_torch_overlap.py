@@ -23,7 +23,10 @@ from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokeniz
 from torch_twins import jax_twin
 
 N_ABBREV, SEED = 200, 7
-KINDS = ["matok", "datok", "noeot"]
+# "datok_general": the .datok model on an engine="general" engine, which
+# keeps the double array (the other kinds' engines run a matrix)
+KINDS = ["matok", "datok", "noeot", "datok_general"]
+ENGINE = {"datok_general": "general"}
 
 # the JAX overlap tests' texts (tests/test_overlap.py:26-40)
 STREAM = (
@@ -44,16 +47,22 @@ EDGES = [
 
 @pytest.fixture(scope="module")
 def models():
+    da = synth_datok(N_ABBREV, SEED)
     return {
         "matok": synth_tokenizer(N_ABBREV, SEED),
-        "datok": synth_datok(N_ABBREV, SEED),
+        "datok": da,
         "noeot": synth_tokenizer(N_ABBREV, SEED, eot=False),
+        "datok_general": da,
     }
 
 
 @pytest.fixture(scope="module")
 def engines(models):
-    return {k: dtt.BatchEngine(m, device="cpu") for k, m in models.items()}
+    engs = {k: dtt.BatchEngine(m, device="cpu",
+                               engine=ENGINE.get(k, "auto"))
+            for k, m in models.items()}
+    assert engs["datok_general"].tables.kind == "DATOK"
+    return engs
 
 
 @pytest.fixture(scope="module")
@@ -214,7 +223,8 @@ def test_bad_lanes_are_repaired_exactly(models, kind):
     # documents of 100-200 characters need more than the 64 + 0.1 L
     # steps the budget leaves them
     text = "\x04".join(synth_text(tok, 10, 150, seed=SEED + 3)) + STREAM
-    eng = dtt.BatchEngine(tok, device="cpu", steps_factor=0.1)
+    eng = dtt.BatchEngine(tok, device="cpu", steps_factor=0.1,
+                          engine=ENGINE.get(kind, "auto"))
     jeng = JaxEngine(jax_twin(tok), engine="general", steps_factor=0.1)
     st = {}
     got = dtt.tokenize_stream_pipelined(tok, text, engine=eng, lanes=7,

@@ -22,21 +22,30 @@ from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokeniz
 from torch_twins import jax_twin
 
 N_ABBREV, SEED = 200, 7
-KINDS = ["matok", "datok", "noeot"]
+# "datok_general": the .datok model on an engine="general" engine, which
+# keeps the double array (the other kinds' engines run a matrix)
+KINDS = ["matok", "datok", "noeot", "datok_general"]
+ENGINE = {"datok_general": "general"}
 
 
 @pytest.fixture(scope="module")
 def models():
+    da = synth_datok(N_ABBREV, SEED)
     return {
         "matok": synth_tokenizer(N_ABBREV, SEED),
-        "datok": synth_datok(N_ABBREV, SEED),
+        "datok": da,
         "noeot": synth_tokenizer(N_ABBREV, SEED, eot=False),
+        "datok_general": da,
     }
 
 
 @pytest.fixture(scope="module")
 def engines(models):
-    return {k: dtt.BatchEngine(m, device="cpu") for k, m in models.items()}
+    engs = {k: dtt.BatchEngine(m, device="cpu",
+                               engine=ENGINE.get(k, "auto"))
+            for k, m in models.items()}
+    assert engs["datok_general"].tables.kind == "DATOK"
+    return engs
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +185,7 @@ def _reader_text(tok):
 def reader_case(models, engines):
     """Per model: the reader test text and its ``tokenize_stream`` output."""
     out = {}
-    for kind in ("matok", "noeot"):
+    for kind in ("matok", "noeot", "datok_general"):
         tok = models[kind]
         text = _reader_text(tok)
         want = dtt.tokenize_stream(tok, text, engine=engines[kind]).getvalue()
@@ -189,7 +198,7 @@ def reader_case(models, engines):
     ("bytes", 7), ("bytes", 64), ("bytes", 4096),
     ("text", 7), ("text", 64), ("text", 4096), ("native", 4096),
 ])
-@pytest.mark.parametrize("kind", ["matok", "noeot"])
+@pytest.mark.parametrize("kind", ["matok", "noeot", "datok_general"])
 def test_tokenize_reader_equals_stream(models, engines, reader_case, kind,
                                        chunk, mode):
     tok = models[kind]

@@ -95,3 +95,20 @@ def test_a_function_without_a_loop_is_refused():
     with pytest.raises(ValueError, match="has no loop"):
         S.loop_min_instructions(_listing("_Z1gv", ["MOV R1, RZ", "EXIT"]),
                                 "_Z1g")
+
+
+def test_k1_instances_by_template_arguments():
+    """K1's instantiations are found by their template arguments: block
+    size, form and layout (an enum literal in the mangled name)."""
+    names = {
+        (256, False, False): "_ZN12_GLOBAL__N_116transduce_kernelILi256ELb0E"
+                             "LN2dt6LayoutE0EEEvN2dt5ModelEPK5uint4i",
+        (1024, True, False): "_ZN12_GLOBAL__N_116transduce_kernelILi1024ELb1E"
+                             "LN2dt6LayoutE0EEEvN2dt5ModelEPK5uint4i",
+        (256, False, True): "_ZN12_GLOBAL__N_116transduce_kernelILi256ELb0E"
+                            "LN2dt6LayoutE1EEEvN2dt5ModelEPK5uint4i",
+    }
+    text = "".join(_listing(n, ["EXIT"]) for n in names.values())
+    assert S.k1_instances(text + _listing("_Z1kv", ["EXIT"])) == names
+    with pytest.raises(ValueError, match="no instantiation"):
+        S.k1_instances(_listing("_Z1kv", ["EXIT"]))
