@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    repository's sources, all at once, one ``nvcc`` each, and counts
    the fewest instructions one pass of K1's step loop issues in its
    SASS (``cuobjdump``), for each instantiation: the full form (run
-   skip and fused boundaries; the engine's) and the general form;
+   skip and fused boundaries; the engine's) and the general form, over
+   the matrix and over a double array;
 3. kernel vs plain: K1 and the plain PyTorch machine on the same CUDA
    tensors (full-size synthetic model, B=4096 x L=256, without a hot
    set and with the ``"auto"`` one), each in both forms, must agree
@@ -29,7 +30,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    step and bound; the main path must not have launched the general
    form;
 4b. the double array: the DE-size ``synth_datok`` (phase 4's model as
-   base/check, about 3.05 M cells) on K1's general form over base/check:
+   base/check, about 3.05 M cells) on K1's general form over its
+   (word, check) pairs and hop table (the time to build them on the
+   host and the hop table's size are printed):
    (a) K1 and the plain machine on phase 3's shape with entries and
    stops, equal on every quantity; (b) phase 4's wave through
    ``BatchEngine(da, device="cuda", engine="general").events_batch`` and
@@ -37,13 +40,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    it, every lane equal in events, counts, steps, backtracks, forced
    emits and bytes to the matrix engine under ``engine="general"``, the
    bytes equal to phase 4's, and K1 equal to the plain machine on 1024
-   of its lanes and on all of them (timed in turns); (c) ``"auto"`` on
+   of its lanes and on all of them (timed in turns), with the share of
+   the plain machine's successful steps that take a separate-state
+   hop; (c) ``"auto"`` on
    a double array whose ``to_matrix()`` raises must warn and run on the
    card; (d) the double-array form, the matrix general form and the
    matrix full form in turns, with steps a character, each warp's
-   slowest lane, instructions a step and the bound; (e) phase 8(a)'s
-   stream once through ``tokenize_stream_pipelined`` on the
-   double-array engine, byte-equal to the native oracle;
+   slowest lane, instructions a step and the bound, and the
+   double-array form with its hop table spread over one entry a state
+   (a real model's largest, its hops dealt out over the copies), equal
+   to the plain machine and timed in turns with the table as built; (e)
+   phase 8(a)'s stream once through ``tokenize_stream_pipelined`` on
+   the double-array engine, byte-equal to the native oracle;
 5. the DE model, when ``DATOK_DE_MODEL`` names its ``.matok`` file,
    through the same path;
 6. the probe kernels: KF (``csrc/hot_fetch.cu``, prepared once, select
@@ -128,7 +136,8 @@ instructions a step and bounds on the waves of phases 4 and 8
 (``forms``), each instantiation's instructions a step (``step_instr``),
 phase 10's numbers and phase 4b's (``da``: the double-array form's
 launches in that phase, its time, plain time, bound and instructions a
-step); KF's and KP's add their device time a call,
+step, the hop table's size and hop share, the pairs' build time and
+the spread table's time); KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -526,10 +535,12 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     tensors, in turns; (c) ``"auto"`` on a double array whose
     conversion fails; (d) the double-array form, the matrix general
     form and the matrix full form in turns, with steps a character,
-    instructions a step and the bound; (e) phase 8(a)'s stream
-    pipelined on the double-array engine.  Returns the ``da`` block of
-    the ``kernels`` line and stream (a) with its native oracle output."""
+    instructions a step and the bound, and the double-array form with a
+    spread hop table; (e) phase 8(a)'s stream pipelined on the
+    double-array engine.  Returns the ``da`` block of the ``kernels``
+    line and stream (a) with its native oracle output."""
     from datok_tpu_torch.fsa.double_array import DaTokenizer
+    from datok_tpu_torch.runtime.rep import da_pairs, tables_from_tokenizer
     from datok_tpu_torch.testing.synth import DE_N_ABBREV, synth_datok
 
     t0 = time.perf_counter()
@@ -543,6 +554,14 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     print(f"da: synthetic DE-size double array, {tb.n_cells} base/check "
           f"cells ({8 * tb.n_cells / 1e6:.2f} MB), {sep} separate-state "
           f"slots, size {tb.size}, built in {built:.2f} s", flush=True)
+    # K1's form of the cells: the (word, check) pairs and the hop table
+    t0 = time.perf_counter()
+    _, hop_np = da_pairs(da.base, da.check)
+    pairs_s = time.perf_counter() - t0
+    n_hop = hop_np.shape[0]
+    print(f"da: the pair array ({8 * tb.n_cells} bytes) and the hop table "
+          f"({n_hop} representatives, {8 * n_hop} bytes, read through L1) "
+          f"built on the host in {pairs_s:.3f} s", flush=True)
 
     # (a) K1 against the plain machine, phase 3's shape, entries and stops
     B3, L3 = CHECK_SHAPE
@@ -600,21 +619,29 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
           "counts, steps, backtracks and forced emits equal to the matrix "
           "engine's (engine='general'), the bytes equal to phase 4's "
           f"[{card}]", flush=True)
+    # against the plain machine on 1024 of the wave's lanes, then on all
     sl = tuple(x[:1024] for x in args[1:5])
-    err_b = max_abs_err(kt.transduce_general(tb, *sl, steps_w),
-                        run_machine(tb, *sl, steps_w, form="general"))
+    plain_sl = run_machine(tb, *sl, steps_w, form="general")
+    err_b = max_abs_err(kt.transduce_general(tb, *sl, steps_w), plain_sl)
     if err_b != 0:
         raise RuntimeError(f"da (b): K1 differs from the plain machine on "
                            f"1024 lanes of the wave (max abs err {err_b})")
-    # in turns: plain, kernel, kernel, plain on the whole wave
-    p1, plain = cuda_ms(lambda: run_machine(*args, form="general"))
-    k1, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
-    k2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
-    p2, _ = cuda_ms(lambda: run_machine(*args, form="general"))
+    # the plain machine counts the successful steps and their hops
+    hop_count = torch.zeros(2, dtype=torch.int64, device=args[1].device)
+    plain = run_machine(*args, form="general", hop_count=hop_count)
+    n_succ, n_hops = (int(x) for x in hop_count.cpu())
     err_b = max(err_b, max_abs_err(res, plain))
     if err_b != 0:
         raise RuntimeError(f"da (b): K1 differs from the plain machine on "
                            f"the wave (max abs err {err_b})")
+    print(f"da (b): the plain machine on the wave: {n_succ} successful "
+          f"steps, {n_hops} of them through a separate-state hop (share "
+          f"{n_hops / max(n_succ, 1):.4f})", flush=True)
+    # in turns: plain, kernel, kernel, plain on the whole wave
+    p1, _ = cuda_ms(lambda: run_machine(*args, form="general"))
+    k1, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    k2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    p2, _ = cuda_ms(lambda: run_machine(*args, form="general"))
     print(f"da (b): kernel vs plain on 1024 lanes of the wave and on all "
           f"{len(texts)}, every quantity equal (max abs err {err_b}); K1 "
           f"{k1:.4f} / {k2:.4f} ms (means of 10), plain {p1:.1f} / "
@@ -659,10 +686,11 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     n_chars = max(int(lengths.sum()), 1)
     kern = k1_kernel(int(meta.shape[0]), chip["n_sm"], "general", "da")
     instr = chip["step_instr"][kern]
-    # bytes: a base and a check cell of each state the walk reads
+    # bytes: a (word, check) pair of each state the walk reads, and the
+    # hop table's entries
     bound, by, n_b, b_ms, n_steps, ops_ms = k1_bound(
         args[1:5], r_da, w4["seen"], instr, chip["n_sm"], chip["clock_hz"],
-        w4["seen"])
+        w4["seen"] + 2 * n_hop)
     warp = warp_max_steps(r_da[4])
     print(f"da (d): in turns, B={meta.shape[0]} x L={meta.shape[1]}, "
           f"double array / matrix general / matrix full / double array: "
@@ -676,6 +704,32 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
           f"({kern}); bound {bound:.4f} ms by {by} (instructions "
           f"{ops_ms:.4f} ms, bytes {n_b} = {b_ms:.4f} ms); mean {ms:.4f} "
           f"ms, {ms / bound:.2f}x its bound [{card}]", flush=True)
+
+    # the hop table spread over one entry a state of phase 4's model (a
+    # real model's largest, ~147 KB), each representative's cells dealt
+    # out to its copies, so that the hops read all of it: the same
+    # results, checked, and timed in turns with the table as built
+    tb_s = tables_from_tokenizer(da, "cuda", spread=eng.tok.state_count)
+    rows = int(tb_s.hop.shape[0])
+    err_s = max_abs_err(kt.transduce_general(tb_s, *sl, steps_w), plain_sl)
+
+    def spread():
+        return kt.transduce_general(tb_s, *args[1:])
+
+    b1, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    s1, r_s = cuda_ms(spread, n=10, warmup=2)
+    s2, _ = cuda_ms(spread, n=10, warmup=2)
+    b2, _ = cuda_ms(lambda: kt.transduce_general(*args), n=10, warmup=2)
+    err_s = max(err_s, max_abs_err(r_s, r_da))
+    if err_s != 0:
+        raise RuntimeError(f"da (d): the spread hop table changed K1's "
+                           f"results (max abs err {err_s})")
+    print(f"da (d): the hop table spread over {rows} entries ({8 * rows} "
+          f"bytes): equal to the plain machine on 1024 lanes and to K1 on "
+          f"the wave; in turns, as built / spread / spread / as built: "
+          f"{b1:.4f} / {s1:.4f} / {s2:.4f} / {b2:.4f} ms (means of 10); "
+          f"spread / as built {(s1 + s2) / (b1 + b2):.3f} [{card}]",
+          flush=True)
 
     # (e) phase 8(a)'s stream, pipelined on the double-array engine
     t0 = time.perf_counter()
@@ -708,9 +762,13 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
         "launches": launches_b + launches_c + launches_e,
         "launches_by_part": {"b": launches_b, "c": launches_c,
                              "e": launches_e},
-        "max_abs_err": max(err_a, err_b), "ms": ms,
+        "max_abs_err": max(err_a, err_b, err_s), "ms": ms,
         "plain_ms": (p1 + p2) / 2, "bound_ms": bound, "bound_by": by,
         "step_instr": instr, "kernel": kern, "turns_ms": [d1, g1, f1, d2],
+        "hop_entries": n_hop, "pairs_build_s": pairs_s,
+        "hop_share": n_hops / max(n_succ, 1),
+        "spread_hop": {"entries": rows, "bytes": 8 * rows,
+                       "turns_ms": [b1, s1, s2, b2], "max_abs_err": err_s},
         "matrix_general_ms": g1, "matrix_full_ms": f1,
         "steps_per_char": n_steps / n_chars, "warp_max_steps_mean": warp,
         "n_cells": tb.n_cells, "separate_slots": sep,

@@ -5,9 +5,13 @@ the card: phase 4's wave of ``chip_smoke.py`` through
 ``BatchEngine.events_batch`` and the native writer (``e2e_mbps``), and
 phase 8(a)'s stream through ``tokenize_stream_pipelined`` with its
 defaults (``pipelined_mbps``), each ``--reps`` times after one warm-up,
-every output checked against the first.  It uses only entry points that
-every version of the port has, so two trees compare in one call, each
-in its own process, in turns (A, B, B, A)::
+every output checked against the first; then both on the same model as
+a double array (``synth_datok``, smoke phase 4b) through
+``BatchEngine(da, engine="general")`` (``da_e2e_mbps``,
+``da_pipelined_mbps``), whose outputs must equal the matrix engine's.
+It uses only entry points that every version of the port since the
+double-array engine has, so two trees compare in one call, each in its
+own process, in turns (A, B, B, A)::
 
     python3 datok_tpu_torch/bench_micro/e2e_turns.py --root build/parent
     python3 datok_tpu_torch/bench_micro/e2e_turns.py --root .
@@ -36,7 +40,8 @@ def main():
 
     import chip_smoke as cs
     import datok_tpu_torch as dtt
-    from datok_tpu_torch.testing.synth import synth_text, synth_tokenizer
+    from datok_tpu_torch.testing.synth import (DE_N_ABBREV, synth_datok,
+                                               synth_text, synth_tokenizer)
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: no GPU")
@@ -54,7 +59,7 @@ def main():
     cps = np.frombuffer("".join(texts).encode("utf-32-le"), dtype="<u4")
     cps = cps.astype(np.int32)
 
-    def wave():
+    def wave(eng=eng):
         evs = eng.events_batch(texts, as_arrays=True)
         counts = np.array([len(e) for e in evs], dtype=np.int32)
         w = dtt.NativeWriter(dtt.SIMPLE)
@@ -64,14 +69,23 @@ def main():
     text_a = "".join(t + "\x04\n" for t in texts)
     n_stream = len(text_a.encode("utf-8"))
 
-    def stream():
+    def stream(eng=eng):
         return dtt.tokenize_stream_pipelined(
-            tok, text_a, dtt.NativeWriter(dtt.SIMPLE), engine=eng).getvalue()
+            eng.tok, text_a, dtt.NativeWriter(dtt.SIMPLE),
+            engine=eng).getvalue()
 
+    eng_da = dtt.BatchEngine(synth_datok(DE_N_ABBREV, cs.SEED),
+                             device="cuda", engine="general")
+    runs = [("e2e_mbps", wave, n_wave), ("pipelined_mbps", stream, n_stream),
+            ("da_e2e_mbps", lambda: wave(eng_da), n_wave),
+            ("da_pipelined_mbps", lambda: stream(eng_da), n_stream)]
     out = {"root": opts.root, "card": card}
-    for name, fn, n_bytes in (("e2e_mbps", wave, n_wave),
-                              ("pipelined_mbps", stream, n_stream)):
-        first = fn()  # warm-up
+    firsts = {}
+    for name, fn, n_bytes in runs:
+        first = firsts[name] = fn()  # warm-up
+        if name.startswith("da_") and first != firsts[name[3:]]:
+            raise RuntimeError(f"{name}: the double array's output differs "
+                               "from the matrix engine's")
         rates = []
         for _ in range(opts.reps):
             torch.cuda.synchronize()

@@ -19,12 +19,24 @@
 // form.  The double-array instance is the counterpart of the JAX
 // general machine over DoubleArrayRep (jax_engine.py:_run_machine,
 // :702, an XLA while loop of gathers): a loop of torch ops would cost
-// what the plain machine does, so the loop folds into the kernel.  Its
-// step reads base, then check and base again, one dependent load more
-// than a matrix step; base and check of a DE-size model (24.4 MB)
-// stay in the 50 MB L2 as the matrix does.  It has no hot set and
-// takes up to 256 threads a block, as many blocks as the lanes need
-// (no shared memory holds it to one block an SM).
+// what the plain machine does, so the loop folds into the kernel.
+// Read as base, then check and base again, its step would wait on two
+// dependent L2 loads where a matrix step waits on one.  So the tables
+// are interleaved (word, check) pairs (24.4 MB at DE size, in the 50
+// MB L2) and each lane carries the base of every state it holds: the
+// step loads its probe's check cell and its transition's pair at once
+// from registers, and a separate-state hop reads a small hop table
+// through L1 with __ldg, not L2 (transduce_step.cuh).  The hop table
+// is not staged into shared memory: on an H100 that was at most 2.6%
+// faster with a table of a few entries and slower from 16 KB on, what
+// it took of the SM's 256 KB being what L1 lost (PERF.md).  A double
+// array has no hot set and takes up to 256 threads a block, as many
+// blocks as the lanes need.  Measured on an H100, the step with its
+// one dependent L2 load runs about 0.84x the time of the
+// base-then-check step it replaced and 1.2x the matrix general form's,
+// with about an eighth more instructions a step; with hops spread over
+// a hop table of one entry a state (147 KB) it takes 1.08x as long,
+// a hop that misses L1 taking a second L2 load back (PERF.md).
 //
 // What bounds it on this card: each step is a chain of the state's
 // cells, whose loads wait for the step before, and integer selects, so
@@ -102,6 +114,7 @@ transduce_kernel(dt::Model m, const uint4* __restrict__ hot_rows,
   __syncthreads();
   // (without a hot set no lane is hot and the pointer is never read)
   m.hot = reinterpret_cast<const uint32_t*>(smem_hot);
+  if (kLayout == dt::Layout::DoubleArray) m.root_b = dt::da_base(m, dt::ROOT);
 
   unsigned long long cold = 0, steps = 0;
   for (int32_t lane = blockIdx.x * blockDim.x + threadIdx.x; lane < B;
@@ -224,18 +237,19 @@ extern "C" int dt_transduce_launch(
   return (int)e;
 }
 
-// Launches K1's general form over a double array (``base`` and
-// ``check``, ``n_cells`` < 2^28 cells each, ``size`` the size field)
-// on ``stream``; the other arguments and the return are
-// dt_transduce_launch's.  Blocks of ceil(B / SMs) lanes rounded up to a
-// warp, at most 256, as many as the lanes need.
+// Launches K1's general form over a double array on ``stream``:
+// ``base`` (n_cells < 2^28 words, read where a lane enters), ``pairs``
+// (n_cells interleaved (word, check) pairs), ``hop`` (the hop table,
+// entries of two words), ``size`` the size field; the other arguments
+// and the return are dt_transduce_launch's.  Blocks of ceil(B / SMs)
+// lanes rounded up to a warp, at most 256, as many as the lanes need.
 extern "C" int dt_transduce_da_launch(
-    const uint32_t* base, const uint32_t* check, int64_t n_cells,
-    int32_t size, int32_t eps, int32_t unknown, int32_t identity,
-    const int32_t* meta, int32_t L, int32_t B, const int32_t* lengths,
-    const int32_t* entries, const uint8_t* stops, int32_t max_steps,
-    int32_t* events, int32_t* counts, uint8_t* bad, int32_t* state,
-    int32_t* steps, int64_t* cold, int64_t* cold_total, void* stream) {
+    const uint32_t* base, const uint32_t* pairs, const uint32_t* hop,
+    int64_t n_cells, int32_t size, int32_t eps, int32_t unknown,
+    int32_t identity, const int32_t* meta, int32_t L, int32_t B,
+    const int32_t* lengths, const int32_t* entries, const uint8_t* stops,
+    int32_t max_steps, int32_t* events, int32_t* counts, uint8_t* bad,
+    int32_t* state, int32_t* steps, int64_t* cold, int64_t* cold_total, void* stream) {
   cudaStream_t strm = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(cold, 0, 2 * sizeof(int64_t), strm);
   if (e != cudaSuccess || B <= 0) return (int)e;
@@ -247,7 +261,9 @@ extern "C" int dt_transduce_da_launch(
   if (threads > kSmallThreads) threads = kSmallThreads;
   int grid = (B + threads - 1) / threads;
   dt::Model m{base, nullptr, nullptr, nullptr, 0, (int32_t)n_cells, 0, 0,
-              eps, unknown, identity, 0, 0, 0u, check, size};
+              eps, unknown, identity, 0, 0, 0u,
+              reinterpret_cast<const uint64_t*>(pairs), size,
+              reinterpret_cast<const uint64_t*>(hop), 0u};
   Outs o{events, counts, state, steps, bad,
          reinterpret_cast<unsigned long long*>(cold),
          reinterpret_cast<unsigned long long*>(cold_total)};

@@ -64,14 +64,17 @@ extern "C" int dt_transduce_host(
 // The general form over a double array; the arguments are
 // dt_transduce_da_launch's (transduce.cu) minus the stream.
 extern "C" int dt_transduce_da_host(
-    const uint32_t* base, const uint32_t* check, int64_t n_cells,
-    int32_t size, int32_t eps, int32_t unknown, int32_t identity,
-    const int32_t* meta, int32_t L, int32_t B, const int32_t* lengths,
-    const int32_t* entries, const uint8_t* stops, int32_t max_steps,
-    int32_t* events, int32_t* counts, uint8_t* bad, int32_t* state,
-    int32_t* steps, int64_t* cold, int64_t* cold_total) {
+    const uint32_t* base, const uint32_t* pairs, const uint32_t* hop,
+    int64_t n_cells, int32_t size, int32_t eps, int32_t unknown,
+    int32_t identity, const int32_t* meta, int32_t L, int32_t B,
+    const int32_t* lengths, const int32_t* entries, const uint8_t* stops,
+    int32_t max_steps, int32_t* events, int32_t* counts, uint8_t* bad,
+    int32_t* state, int32_t* steps, int64_t* cold, int64_t* cold_total) {
   dt::Model m{base, nullptr, nullptr, nullptr, 0, (int32_t)n_cells, 0, 0,
-              eps, unknown, identity, 0, 0, 0u, check, size};
+              eps, unknown, identity, 0, 0, 0u,
+              reinterpret_cast<const uint64_t*>(pairs), size,
+              reinterpret_cast<const uint64_t*>(hop), 0u};
+  m.root_b = dt::da_base(m, dt::ROOT);
   return run_lanes(dt::run_lane<false, dt::Layout::DoubleArray>, m, meta, L,
                    B, lengths, entries, stops, max_steps, events, counts, bad,
                    state, steps, cold, cold_total);

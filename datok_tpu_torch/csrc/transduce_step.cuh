@@ -19,11 +19,26 @@
 //   (a-1)*S + t holds the target;
 // - the double array (DoubleArrayRep, :133-171), general form only: a
 //   double array has no per-state words, and the JAX package never
-//   skips or fuses on one.  The transition reads base[t0], then
-//   check[tc] and the separate-state hop's base[tc]; the probe reads
-//   base[t], then check[base + eps].  The step reads one base cell, at
-//   the state whose row it reads, so the probe and the transition of a
-//   read share it, and the three cells after it load at once.
+//   skips or fuses on one.  Its cells are interleaved (base word,
+//   check) pairs, the .datok file's own layout (runtime/rep.py:
+//   da_pairs), and the lane carries the base of each state it holds
+//   (t, t0 and the backtrack register) beside its id.  What bounds
+//   the step is its chain of dependent loads, as on the matrix: a
+//   lane is latency bound.  So the probe's check cell (at base + eps)
+//   and the transition's pair (at base + a) load at once from bases
+//   in registers, and that one 8-byte load brings the transition's
+//   check together with the word that says where the lane goes: a
+//   plain cell's word is the next state's base itself (the state is
+//   the cell), a separate cell's word indexes a hop table whose entry
+//   holds the representative and its base, built on the host.  The
+//   hop table is small (one entry a distinct representative, at most
+//   the automaton's states, ~147 KB at DE size) and is read through
+//   L1, so a hop that hits L1 adds a short load, not a second L2 load,
+//   and the step has one dependent L2 load as a matrix step has (a hop
+//   that misses L1 takes the L2 load back: PERF.md times tables whose
+//   hops spread over many entries).  The base of an entry state is
+//   read once a lane from the original base array; the root's is a
+//   launch constant.
 // Each predicate below is one of _make_step's disjoint masks, and the
 // comments name them.  The full form's gates are the JAX kernel's.  It
 // fuses every composition they let through, where the TPU kernel fuses
@@ -93,10 +108,12 @@ enum class Layout { Matrix, DoubleArray };
 
 // Dense matrix model: cell (a-1)*S + t, 0 = no arc, FIRSTBIT = nontoken.
 // Cell indices are 32-bit: the wrapper takes tables of fewer than 2^31
-// cells.  A double array (Layout::DoubleArray) keeps base in ``table``
-// and check in ``check``, n_cells cells each (fewer than 2^28: the
-// wrapper refuses more, since a slot must fit an entry context), its
-// size field in ``size``, and none of the hot set or the per-state
+// cells.  A double array keeps its original base in ``table`` (read
+// only where a lane enters), its n_cells interleaved (word, check)
+// pairs in ``pairs`` (fewer than 2^28: the wrapper refuses more, since
+// a slot must fit an entry context), its hop table in ``hop`` (entry j:
+// the representative, then its base), its size field in ``size``, the
+// root's base in ``root_b``, and none of the hot set or the per-state
 // words.
 struct Model {
   const uint32_t* table;  // the whole table (a double array's base);
@@ -109,13 +126,16 @@ struct Model {
   int32_t S, max_sym, eps, unknown, identity;
   int32_t n_hot_of, root_h;
   uint32_t tag_mask;  // bits 20..29 with a hot set, else 0
-  const uint32_t* check;  // a double array's check, else unused
+  const uint64_t* pairs;  // a double array's (word, check) pairs
   int32_t size;  // a double array's size field (check[1] & RESTBIT)
+  const uint64_t* hop;  // a double array's hop table
+  uint32_t root_b;  // the RESTBIT base of the root (a double array)
 };
 
 struct Lane {
   int32_t t, t0, a, c, b, ft, eps_s, eps_o, pend, pend2, ckpt;
   int32_t h, h0, eps_h;  // hot index + 1 of t, t0 and eps_s (0 = cold)
+  uint32_t bt, bt0, beps;  // a double array's RESTBIT base of t, t0, eps_s
   int32_t mv;  // the meta word at the cursor c (clipped to the row)
   int32_t n_backtrack, n_force, n_cold, length;
   bool ok, eot, newchar, sflag, tflag, stop, done;  // done = phase 1
@@ -155,41 +175,68 @@ DT_HD uint32_t eps_cell(const Model& m, int32_t h, int32_t t) {
   return cell(m, (int64_t)(m.eps - 1) * m.S + t);
 }
 
-// Cell i of a double array's base or check (``arr``); 0 outside the
-// arrays, as the mode="fill" gathers give.  ``i`` is 64-bit: a corrupt
-// base may put base + a past 2^31.
+// Cell i of a double array's base (``arr``); 0 outside the array, as the
+// mode="fill" gathers give.  ``i`` is 64-bit: a corrupt base may put
+// base + a past 2^31.
 DT_HD uint32_t da_cell(const Model& m, const uint32_t* arr, int64_t i) {
   return (i >= 0 && i < m.n_cells) ? arr[i] : 0u;
 }
 
+// The RESTBIT base of state t, from the original base array (a lane's
+// entry state, which may name any slot, and the root).
+DT_HD uint32_t da_base(const Model& m, int32_t t) {
+  return da_cell(m, m.table, t) & RESTBIT;
+}
+
+// Entry j of the hop table, through L1 on the card.
+DT_HD uint64_t hop_at(const Model& m, uint32_t j) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(reinterpret_cast<const unsigned long long*>(m.hop) + j);
+#else
+  return m.hop[j];
+#endif
+}
+
 // A double array's ε probe and transition (DoubleArrayRep.eps_avail
-// and .transition, jax_engine.py:148-171) at state ``u``, the state
-// whose row the step reads: t on a new character (the probe reads
-// only then, and a read's t0 is t), t0 otherwise.  One base cell, then
-// the probe's check cell, the transition's check cell (no a == 0
-// guard, :158) and the separate-state hop's base cell at the clipped
-// index (datok.go:1056-1063), all three at once.
+// and .transition, jax_engine.py:148-171) from ``bu``, the base of the
+// state whose row the step reads: t on a new character (the probe
+// reads only then, and a read's t0 is t), t0 otherwise.  The probe's
+// check cell and the transition's (word, check) pair load at once;
+// neither waits on a base.  No a == 0 guard (:158).  A separate cell
+// (datok.go:1056-1063) hops once, to the representative of its hop
+// table entry, whose base comes with it; a plain cell's word is the
+// base of the cell's own state.  Cells outside the array read as 0.
+// The indices are 32-bit: ``bu`` < 2^30, so base + x wraps past 2^31
+// exactly where it is negative, and a negative index, like one past
+// the end, names no cell (the JAX reps' mode="fill" gathers).
 struct DaFetch {
   bool eps_here, valid, nontok;
   int32_t t_next;
+  uint32_t b_next;  // the RESTBIT base of t_next
 };
 
-DT_HD DaFetch da_fetch(const Model& m, int32_t u, int32_t t, int32_t t0,
+DT_HD DaFetch da_fetch(const Model& m, uint32_t bu, int32_t t, int32_t t0,
                        int32_t a) {
-  const int64_t bu = (int64_t)(da_cell(m, m.table, u) & RESTBIT);
-  const int64_t te = bu + m.eps;
-  const int64_t tc = bu + a;
-  const bool in_rng = tc >= 0 && tc < m.n_cells;
-  const int64_t tc_c = tc < 0 ? 0 : (in_rng ? tc : m.n_cells - 1);
-  const uint32_t chk_e = da_cell(m, m.check, te);
-  const uint32_t chk = in_rng ? m.check[tc] : 0u;
-  const uint32_t b_t = m.table[tc_c];
+  const uint32_t n = (uint32_t)m.n_cells;
+  const uint32_t te = bu + (uint32_t)m.eps;
+  const uint32_t tc = bu + (uint32_t)a;
+  const bool e_rng = te < n, in_rng = tc < n;
+  const uint32_t* chk_of = reinterpret_cast<const uint32_t*>(m.pairs) + 1;
+  const uint32_t chk_e = e_rng ? chk_of[2 * (uint64_t)te] : 0u;
+  const uint64_t pair = in_rng ? m.pairs[tc] : 0ull;
+  const uint32_t w = (uint32_t)pair, chk = (uint32_t)(pair >> 32);
+  const bool sep = (w & FIRSTBIT) != 0;
+  const uint64_t hop = sep ? hop_at(m, w & ~FIRSTBIT) : 0ull;
+  // base + eps below 0 (eps < 0 only): no cell, below n_cells
+  const bool e_neg = m.eps < 0 && bu < (uint32_t)(-(int64_t)m.eps);
   DaFetch d;
   // the probe has no size test, the transition has (:148-153)
-  d.eps_here = te < m.n_cells && (int32_t)(chk_e & RESTBIT) == t;
-  d.valid = tc <= m.size && in_rng && (int32_t)(chk & RESTBIT) == t0;
+  d.eps_here = e_rng ? (int32_t)(chk_e & RESTBIT) == t : (e_neg && t == 0);
+  d.valid = in_rng && tc <= (uint32_t)m.size &&
+            (int32_t)(chk & RESTBIT) == t0;
   d.nontok = (chk & FIRSTBIT) != 0;
-  d.t_next = (b_t & FIRSTBIT) ? (int32_t)(b_t & RESTBIT) : (int32_t)tc;
+  d.t_next = sep ? (int32_t)(uint32_t)hop : (int32_t)tc;
+  d.b_next = sep ? (uint32_t)(hop >> 32) : (w & RESTBIT);
   return d;
 }
 
@@ -212,12 +259,18 @@ DT_HD int32_t meta_at(const int32_t* row, int32_t p, int32_t L) {
 #endif
 }
 
+template <Layout kLayout>
 DT_HD void init_lane(Lane& s, const Model& m, const int32_t* row, int32_t L,
                      int32_t entry, int32_t length, bool stop) {
   // packed entry context: t | sflag<<28 | tflag<<29 | ok<<30 (1 = root)
   s.t = s.t0 = entry & 0x0FFFFFFF;
   s.h = s.h0 = hot_index(m, s.t);
   s.eps_h = 0;
+  constexpr bool kDA = kLayout == Layout::DoubleArray;
+  if (kDA) {
+    s.bt = s.bt0 = da_base(m, s.t);
+    s.beps = 0;
+  }
   s.a = s.c = s.b = s.ft = s.eps_s = s.eps_o = s.pend = s.pend2 = 0;
   s.n_backtrack = s.n_force = s.n_cold = 0;
   s.mv = meta_at(row, 0, L);
@@ -276,11 +329,13 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
     s.eot = (mv & META_EOT) != 0;
     s.t0 = s.t;
     s.h0 = s.h;
+    if (kDA) s.bt0 = s.bt;
   }
-  // a double array's probe and transition, at the state whose row the
-  // step reads (none on the matrix)
-  const DaFetch d = kDA ? da_fetch(m, new0 ? s.t : s.t0, s.t, s.t0, s.a)
-                        : DaFetch{};
+  // a double array's probe and transition, from the base of the state
+  // whose row the step reads (none on the matrix)
+  const DaFetch d =
+      kDA ? da_fetch(m, new0 ? s.bt : s.bt0, s.t, s.t0, s.a)
+          : DaFetch{};
   // the ε probe (read) and the epilogue's chase share one predicate on
   // t; the transition cell comes from the same row on a read
   const bool eps_here =
@@ -312,6 +367,7 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   if (read && eps_here) {  // save the backtrack register
     s.eps_s = s.t;
     s.eps_h = s.h;
+    if (kDA) s.beps = s.bt;
     // a skipped run probes at each of its characters: keep the last
     s.eps_o = skip ? s.c + rl - 1 : s.c;
   }
@@ -388,9 +444,11 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   if (back) {
     s.t0 = s.eps_s;
     s.h0 = s.eps_h;
+    if (kDA) s.bt0 = s.beps;
   } else if (echase) {
     s.t0 = s.t;
     s.h0 = s.h;
+    if (kDA) s.bt0 = s.bt;
   }
   s.a = f1 ? m.unknown : ((back || f3 || echase) ? m.eps : s.a);
   const int32_t c_new =
@@ -416,6 +474,7 @@ DT_HD int32_t step(Lane& s, const Model& m, const int32_t* row, int32_t L) {
   // checkpoint the context at rewinds (a later segment resumes there)
   if (f3 || rew) s.ckpt = ctx_of(t_new, s.sflag, s.tflag, s.ok);
   if (bf) s.ckpt = ctx_of(e, false, false, s.ok);
+  if (kDA) s.bt = f3 ? m.root_b : (succ ? d.b_next : s.bt);
   s.t = t_new;
   s.h = h_new;
   // the word at the new cursor: kept, loaded ahead, or loaded now
@@ -439,7 +498,7 @@ DT_HD int32_t run_lane(const Model& m, const int32_t* row, int32_t L,
                        int32_t max_steps, int32_t* ev_row, int32_t* count,
                        uint8_t* bad, int32_t* state_row, int32_t* steps) {
   Lane s;
-  init_lane(s, m, row, L, entry, length, stop);
+  init_lane<kLayout>(s, m, row, L, entry, length, stop);
   int32_t n = 0, k = 0;
   while (k < max_steps && live(s)) {
     int32_t e = step<kFull, kLayout>(s, m, row, L);

@@ -67,10 +67,10 @@ def _src(*names: str) -> Tuple[str, ...]:
 _TRANSDUCE_ARGS = (_p, _i64, _i32, _i32, _i32, _i32, _i32, _p, _i32, _p,
                    _i32, _i32, ctypes.c_uint32, _p, _i32, _i32, _p, _i32,
                    _i32, _p, _p, _p, _i32, _p, _p, _p, _p, _p, _p, _p)
-# base, check, n_cells, size, eps, unknown, identity, meta, L, B, lengths,
-# entries, stops, max_steps, events, counts, bad, state, steps, cold,
-# cold_total
-_TRANSDUCE_DA_ARGS = (_p, _p, _i64) + (_i32,) * 4 + (_p, _i32, _i32) + (
+# base, pairs, hop, n_cells, size, eps, unknown, identity, meta, L, B,
+# lengths, entries, stops, max_steps, events, counts, bad, state, steps,
+# cold, cold_total
+_TRANSDUCE_DA_ARGS = (_p, _p, _p, _i64) + (_i32,) * 4 + (_p, _i32, _i32) + (
     _p,) * 3 + (_i32,) + (_p,) * 7
 # a, h, table, W, n_planes, select, B, out
 _HOT_FETCH_ARGS = (_p, _p, _p, _i32, _i32, _i32, _i32, _p)

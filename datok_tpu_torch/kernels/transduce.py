@@ -14,13 +14,19 @@ launches.
 
 ``transduce_general`` runs K1's general form, one character or one
 backtrack a step, the same way, over a matrix model's table or a
-double-array model's base and check (the counterpart of the JAX
-general machine, ``jax_engine._run_machine`` over ``MatrixRep`` or
+double-array model's cells (the counterpart of the JAX general
+machine, ``jax_engine._run_machine`` over ``MatrixRep`` or
 ``DoubleArrayRep``); an engine built with ``engine="general"``
 launches it.  ``transduce`` takes only the matrix: the full form reads
 per-state words, which a double array does not have.
 ``transduce_host`` runs either form of K1's step header built for the
 host (tests).
+
+On a double array K1 reads the tables' interleaved (word, check) pairs
+and hop table (``rep.da_pairs``), and each lane carries the base of
+each state it holds, so that a step waits on one L2 load, as a matrix
+step does: its chain of dependent loads is what bounds it.  A hop
+reads the hop table through L1.
 """
 
 from __future__ import annotations
@@ -119,6 +125,14 @@ def _check_layout(tb: Tables, full: bool) -> None:
             raise ValueError(
                 f"a double array of {tb.n_cells} cells: K1 takes 2 to "
                 f"2^28 - 1, so that every slot fits an entry context")
+        if (tb.pairs is None or tb.hop is None
+                or tuple(tb.pairs.shape) != (tb.n_cells, 2)
+                or tb.hop.dim() != 2 or tb.hop.shape[1] != 2
+                or not tb.pairs.is_contiguous()
+                or not tb.hop.is_contiguous()):
+            raise ValueError("a double array needs its (word, check) pairs "
+                             "and hop table (rep.da_pairs, through "
+                             "tables_from_tokenizer)")
     elif tb.n_cells >= 1 << 31:
         raise ValueError(f"{tb.n_cells} cells: K1 takes fewer than 2^31")
 
@@ -127,12 +141,12 @@ def _da_args(tb: Tables, meta, lengths, entries, stops, max_steps, outs,
              cold_total):
     """The double-array entries' arguments (no hot set, no per-state
     words), the stream left out."""
-    base, check = tb.arrays
+    base, _ = tb.arrays
     B, L = meta.shape
     return [
-        base.data_ptr(), check.data_ptr(), tb.n_cells, tb.size, tb.eps,
-        tb.unknown, tb.identity, meta.data_ptr(), L, B, lengths.data_ptr(),
-        entries.data_ptr(), stops.data_ptr(), max_steps,
+        base.data_ptr(), tb.pairs.data_ptr(), tb.hop.data_ptr(), tb.n_cells,
+        tb.size, tb.eps, tb.unknown, tb.identity, meta.data_ptr(), L, B,
+        lengths.data_ptr(), entries.data_ptr(), stops.data_ptr(), max_steps,
         *(o.data_ptr() for o in outs),
         None if cold_total is None else cold_total.data_ptr(),
     ]

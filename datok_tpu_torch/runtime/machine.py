@@ -38,13 +38,15 @@ as K1 does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .encode import (META_A_MASK, META_EOT, META_FOUND, META_NONASCII,
                      META_RUN_MASK, META_RUN_SHIFT)
 from .events import EV_SENT, EV_TEXT, EV_TOKEN
 from .rep import (ST_EPS, ST_EPS_AT_TGT, ST_EPS_TGT, ST_LC, Tables, _take,
-                  eps_avail, transition)
+                  eps_avail, takes_hop, transition)
 
 # Packed-event layout: kind(2) | start(15) | end(15) (jax_engine.py:73-76)
 PACK_POS_BITS = 15
@@ -71,7 +73,7 @@ FORMS = ("full", "general")
 
 def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
                 entries: torch.Tensor, stops: torch.Tensor, max_steps: int,
-                form: str = "full"):
+                form: str = "full", hop_count: Optional[torch.Tensor] = None):
     """Run every lane to completion or to ``max_steps`` steps, with the
     step of ``form`` (:data:`FORMS`; a double-array model, which has no
     per-state words, runs the general step in either).
@@ -94,6 +96,10 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
     step is cold when it reads the row of a state (``t`` on a new
     character and at the end, ``t0`` otherwise) outside ``tb.hot``;
     drain steps and cuts read no row.
+
+    ``hop_count``, a (2,) int64 tensor on the same device, gains (the
+    steps whose transition succeeded, those of them that took a
+    separate-state hop) on a double array's tables.
     """
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
@@ -206,6 +212,9 @@ def run_machine(tb: Tables, meta: torch.Tensor, lengths: torch.Tensor,
         f3 = m_fail & ~f1 & ~f2
 
         m_succ = m_trans & valid
+        if hop_count is not None and tb.kind == "DATOK":
+            hop_count += torch.stack([m_succ.sum(),
+                                      (m_succ & takes_hop(tb, t0, a)).sum()])
         is_eps = a == eps
         has_pending = (c - b) > ft
         flush = m_succ & is_eps & has_pending

@@ -11,7 +11,10 @@ carry K1's hot set (:class:`HotTable`, :func:`with_hot`).
 A matrix model's tables also carry what the full step (run skip and
 fused boundaries) reads of each state, one int32 word a state
 (:func:`state_table`), and the skip class it was built with
-(:func:`skip_class`), which the engine's encoder stamps into meta.
+(:func:`skip_class`), which the engine's encoder stamps into meta.  A
+double array's also carry K1's form of its cells (:func:`da_pairs`):
+interleaved (word, check) pairs and a hop table for the separate
+states.
 """
 
 from __future__ import annotations
@@ -58,7 +61,9 @@ class Tables:
     ``kind`` is the tokenizer type: ``"MATOK"`` (``arrays`` = the dense
     table, cell ``(a-1)*S + t``) or ``"DATOK"`` (``arrays`` = base,
     check).  ``max_sym`` is the matrix's column count and ``size`` the
-    double array's ``check[1]`` size field.
+    double array's ``check[1]`` size field.  A double array's ``pairs``
+    and ``hop`` are :func:`da_pairs`'s, as int32; its ``check`` is a
+    strided view of ``pairs``, so that the cells are not held twice.
     """
 
     kind: str
@@ -73,6 +78,8 @@ class Tables:
     hot: Optional[HotTable] = None
     state_bits: Optional[torch.Tensor] = None
     lc_mask: Optional[np.ndarray] = None
+    pairs: Optional[torch.Tensor] = None
+    hop: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -166,38 +173,90 @@ def state_table(array: np.ndarray, S: int, max_sym: int, eps: int,
     return word.astype(np.int32)
 
 
-def tables_from_tokenizer(tok, device) -> Tables:
+def da_pairs(base: np.ndarray, check: np.ndarray,
+             spread: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """K1's form of a double array's cells: ``(pairs, hop)``.
+
+    ``pairs`` (n, 2) uint32 holds (word, check) for each cell, the
+    ``.datok`` file's own interleaving, so that one 8-byte load brings
+    a transition's check together with where the lane goes next.  The
+    word of a plain cell is ``base`` itself: the next state is the
+    cell, and its base is in hand.  The word of a separate cell
+    (``base & FIRSTBIT``) is ``FIRSTBIT | j``, with j the index of an
+    entry of ``hop`` that holds its representative ``r = base &
+    RESTBIT`` and ``r``'s own ``base & RESTBIT`` (0 where ``r`` lies
+    outside the array): the target and base that the plain machine's
+    one hop gives (:func:`transition`, datok.go:1056-1063).  ``hop``
+    (m, 2) uint32 has one entry a distinct representative (one zero
+    entry where no cell is separate).
+
+    ``spread`` > 0 asks for a hop table of at least that many entries
+    that the hops spread over, for measurements: each representative's
+    entry is repeated, and the separate cells of each representative
+    are dealt out to its copies in turn.  The targets and bases are the
+    same, so a machine that reads it gives the same results."""
+    base = np.asarray(base, dtype=np.uint32)
+    check = np.asarray(check, dtype=np.uint32)
+    n = len(base)
+    sep = np.flatnonzero(base & np.uint32(FIRSTBIT))
+    reps, j = np.unique(base[sep] & np.uint32(RESTBIT), return_inverse=True)
+    inside = reps < n
+    rep_base = np.where(inside, base[np.where(inside, reps, 0)],
+                        np.uint32(0)) & np.uint32(RESTBIT)
+    n_hop = len(reps)
+    copies = max(1, -(-spread // n_hop)) if n_hop else 1
+    if copies > 1:  # each cell's rank among its representative's cells
+        order = np.argsort(j, kind="stable")
+        starts = np.searchsorted(j[order], np.arange(n_hop))
+        rank = np.empty_like(j)
+        rank[order] = np.arange(len(j)) - starts[j[order]]
+        j = j + n_hop * (rank % copies)
+    word = base.copy()
+    word[sep] = np.uint32(FIRSTBIT) | j.astype(np.uint32)
+    hop = np.zeros((max(1, n_hop * copies), 2), dtype=np.uint32)
+    if n_hop:
+        hop[:, 0] = np.tile(reps, copies)
+        hop[:, 1] = np.tile(rep_base, copies)
+    return np.stack([word, check], axis=1), hop
+
+
+def tables_from_tokenizer(tok, device, spread: int = 0) -> Tables:
     """Carry ``tok``'s tables to ``device`` (no copy of the semantics:
     the cells are ``make_rep(tok).tables`` bit for bit); a matrix
-    model's also carry :func:`state_table` and the skip class."""
+    model's also carry :func:`state_table` and the skip class, a double
+    array's :func:`da_pairs` (with its hop table spread over at least
+    ``spread`` entries, for measurements)."""
     device = torch.device(device)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            device)
+
+    state_bits = lc_mask = pairs = hop = None
     if tok.type() == "MATOK":
-        raw = (np.asarray(tok.array, dtype=np.uint32),)
+        raw = np.asarray(tok.array, dtype=np.uint32)
         S = int(tok.state_count)
-        n_cells = len(raw[0])
+        n_cells = len(raw)
         max_sym = n_cells // (S + 1) if S else 0
         size = 0
-    else:
-        raw = (np.asarray(tok.base, dtype=np.uint32),
-               np.asarray(tok.check, dtype=np.uint32))
-        S = 0
-        n_cells = len(raw[0])
-        max_sym = 0
-        size = int(tok.check[1] & RESTBIT)
-    arrays = tuple(
-        torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
-        for a in raw
-    )
-    state_bits = lc_mask = None
-    if tok.type() == "MATOK":
+        arrays = (put(raw),)
         lc_mask, lc_avail = skip_class(tok)
         state_bits = torch.from_numpy(state_table(
-            raw[0], S, max_sym, int(tok.epsilon), lc_avail)).to(device)
+            raw, S, max_sym, int(tok.epsilon), lc_avail)).to(device)
+    else:
+        base = np.asarray(tok.base, dtype=np.uint32)
+        S = 0
+        n_cells = len(base)
+        max_sym = 0
+        size = int(tok.check[1] & RESTBIT)
+        pairs_np, hop_np = da_pairs(base, tok.check, spread)
+        pairs, hop = put(pairs_np), put(hop_np)
+        arrays = (put(base), pairs[:, 1])
     return Tables(
         kind=tok.type(), arrays=arrays, S=S, eps=int(tok.epsilon),
         unknown=int(tok.unknown), identity=int(tok.identity),
         n_cells=n_cells, max_sym=max_sym, size=size,
-        state_bits=state_bits, lc_mask=lc_mask,
+        state_bits=state_bits, lc_mask=lc_mask, pairs=pairs, hop=hop,
     )
 
 
@@ -242,6 +301,15 @@ def eps_avail(tb: Tables, t: torch.Tensor) -> torch.Tensor:
     tc = (_take(base, t.long()) & RESTBIT).long() + tb.eps
     chk = _take(check, tc) & RESTBIT
     return (tc < tb.n_cells) & (chk == t)
+
+
+def takes_hop(tb: Tables, t0: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Does the arc ``t0 --a-->`` of a double array land on a separate
+    cell (the hop of :func:`transition`)?  Only the count of hops
+    reads it."""
+    base, _ = tb.arrays
+    tc = (_take(base, t0.long()) & RESTBIT).long() + a.long()
+    return base[tc.clamp(0, tb.n_cells - 1)] < 0
 
 
 def transition(tb: Tables, t0: torch.Tensor, a: torch.Tensor):

@@ -1,15 +1,22 @@
 """Double-array models on the port's device path against the JAX general
 machine over ``DoubleArrayRep``.
 
-* K1's general step over base/check, built for the host with g++
-  (``transduce_host(..., form="general")`` on a ``.datok`` model's
-  tables), against ``jax_engine._run_machine`` with ``DoubleArrayRep``
+* K1's general step over a double array (interleaved (word, check)
+  pairs, a hop table, each state's base carried by the lane), built
+  for the host with g++ (``transduce_host(..., form="general")`` on a
+  ``.datok`` model's tables, with its hop table as built and spread
+  over many entries), against ``jax_engine._run_machine`` with ``DoubleArrayRep``
   on the JAX CPU backend: events, counts, ``bad``, the exit rows and
   steps, from the root and from non-root entries with cuts, under a
   full and a tiny step budget, on lanes that take the separate-state
   hop and on hand-edited tables that reach the three bug-compatible
   quirks (no ``a == 0`` guard, a size test on the transition but not
-  on the ε probe, ``base + a`` out of range).
+  on the ε probe, ``base + a`` out of range) and the paths of the
+  carried bases (a representative that is itself separate, one
+  outside the array, a lane entering at a separate slot, the rows read
+  after an ε backtrack and an ``f1`` retry).
+* The pairs and hop table (``rep.da_pairs``, as built and spread)
+  against ``rep.transition`` on every cell.
 * ``BatchEngine(da, device="cpu", engine="general")`` against
   ``jax_engine.BatchEngine(jax_twin(da), engine="general")``, and the
   engine with the host build in the place of its device machine.
@@ -46,7 +53,8 @@ from datok_tpu_torch.runtime.decode import (decode_events_batch,
                                             decode_events_compact)
 from datok_tpu_torch.runtime.encode import SymbolEncoder
 from datok_tpu_torch.runtime.machine import run_machine
-from datok_tpu_torch.runtime.rep import _take, tables_from_tokenizer
+from datok_tpu_torch.runtime.rep import (_take, da_pairs,
+                                         tables_from_tokenizer, transition)
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
 from torch_twins import jax_twin
 
@@ -108,11 +116,21 @@ def _args(tb, meta, lengths, entries, stops, max_steps):
             torch.from_numpy(entries), torch.from_numpy(stops), max_steps)
 
 
-def _host(tok, *inputs):
-    """K1's general step over base/check, built for the host: the raw
-    outputs, events past each count zeroed."""
-    out = kt.transduce_host(*_args(tables_from_tokenizer(tok, "cpu"),
-                                   *inputs), form="general")
+# a hop table spread over at least this many entries (rep.da_pairs),
+# the form that a model with many representatives gives K1
+SPREAD = 1000
+
+
+def _host(tok, *inputs, spread=0):
+    """K1's general step over a double array, built for the host, its
+    hop table spread over at least ``spread`` entries: the raw outputs,
+    events past each count zeroed."""
+    return _masked(kt.transduce_host(*_args(
+        tables_from_tokenizer(tok, "cpu", spread), *inputs), form="general"))
+
+
+def _masked(out):
+    """Raw outputs with the events past each count zeroed."""
     ev, counts = out[0], out[1]
     keep = torch.arange(ev.shape[1])[None, :] < counts[:, None]
     return (torch.where(keep, ev, 0),) + tuple(out[1:])
@@ -153,14 +171,16 @@ def _same(a, b):
 
 # ---- the step ---------------------------------------------------------------
 
+@pytest.mark.parametrize("spread", [0, SPREAD])
 @pytest.mark.parametrize("budget", ["full", "tiny"])
 @pytest.mark.parametrize("case", ["root", "entries_stops"])
-def test_host_build_matches_jax_machine(da, wave, case, budget):
-    """Every lane and every quantity, unfinished lanes included; the
-    plain machine gives the same raw outputs, cold counts included."""
+def test_host_build_matches_jax_machine(da, wave, case, budget, spread):
+    """Every lane and every quantity, unfinished lanes included, with
+    the hop table as built and spread over many entries; the plain
+    machine gives the same raw outputs, cold counts included."""
     inputs = _inputs(da, wave, case)
     max_steps = 2 * wave[0].shape[1] + 64 if budget == "full" else 40
-    host = _host(da, *inputs, max_steps)
+    host = _host(da, *inputs, max_steps, spread=spread)
     ref = _jax(da, *inputs, max_steps)
     assert (budget == "tiny") == bool(ref[1].any())
     _assert_equal_jax(_decoded(host), ref)
@@ -185,6 +205,13 @@ def test_lanes_take_the_separate_state_hop(da, wave):
                       _jax(da, *inputs, max_steps))
 
 
+def _target(da, ch):
+    """The state the root's arc on ``ch`` leads to (a slot id)."""
+    base = np.asarray(da.base, np.uint32)
+    tc = int(base[1] & RESTBIT) + da.sigma[ord(ch)]
+    return int(base[tc] & RESTBIT) if base[tc] & FIRSTBIT else tc
+
+
 def _edited(da, quirk):
     """A copy of ``da`` whose tables reach ``quirk``, and the meta
     change (a function of the wave's meta) that drives it."""
@@ -193,7 +220,39 @@ def _edited(da, quirk):
     check = np.array(da.check, np.uint32)
     n = len(base)
     b1 = int(base[1] & RESTBIT)
-    if quirk == "a0":
+    sep = (base & np.uint32(FIRSTBIT)) != 0
+    reps, hits = np.unique(base[sep] & np.uint32(RESTBIT), return_counts=True)
+
+    def drive(meta):
+        return meta
+
+    if quirk == "sep_rep":
+        # every representative but the root is itself separate: a hop
+        # lands on it and stays there (JAX hops once), with the base it
+        # had; an arc that lands on it directly now hops
+        reps = reps[(reps < n) & (reps != 1)]
+        base[reps] |= np.uint32(FIRSTBIT)
+    elif quirk == "rep_outside":
+        # the separate cells of the most common representative hop past
+        # the array's end, to a state whose cells all read as 0
+        r = reps[np.argmax(hits)]
+        base[sep & ((base & np.uint32(RESTBIT)) == r)] = (
+            np.uint32(FIRSTBIT) | np.uint32(n + 5))
+    elif quirk in ("eps_back", "f1_retry"):
+        # the arcs on ε (taken only after an ε backtrack, from the base
+        # carried for the backtrack register) or on the unknown symbol
+        # (the f1 retry, from the base carried for t0) hop to the state
+        # after a root's '.'
+        sym = da.epsilon if quirk == "eps_back" else da.unknown
+        owner = (check & np.uint32(RESTBIT)).astype(np.int64)
+        known = owner < n
+        cell = np.arange(n)
+        arc = known & (cell <= int(check[1] & RESTBIT)) & (
+            cell == (base[np.where(known, owner, 0)] & np.uint32(RESTBIT))
+            .astype(np.int64) + sym)
+        assert arc.sum() > 0
+        base[arc] = np.uint32(FIRSTBIT) | np.uint32(_target(da, "."))
+    elif quirk == "a0":
         # the root takes symbol 0 (no a == 0 guard): check[base[1]] = 1
         assert int(check[b1] & RESTBIT) != 1
         check[b1] = (check[b1] & np.uint32(FIRSTBIT)) | np.uint32(1)
@@ -208,21 +267,17 @@ def _edited(da, quirk):
         # fail, ε probes past it still succeed
         size = int(check[1] & RESTBIT) // 2
         check[1] = (check[1] & ~np.uint32(RESTBIT)) | np.uint32(size)
-
-        def drive(meta):
-            return meta
     else:
         # base + a past the arrays: near their end, or at the largest base
         off = n - 3 if quirk == "near_end" else int(RESTBIT)
         base[1] = (base[1] & ~np.uint32(RESTBIT)) | np.uint32(off)
-
-        def drive(meta):
-            return meta
     tok.base, tok.check = base, check
     return tok, drive
 
 
-@pytest.mark.parametrize("quirk", ["a0", "size", "near_end", "max_base"])
+@pytest.mark.parametrize("quirk", ["a0", "size", "near_end", "max_base",
+                                   "sep_rep", "rep_outside", "eps_back",
+                                   "f1_retry"])
 @pytest.mark.parametrize("case", ["root", "entries_stops"])
 def test_quirks_match_jax_machine(da, wave, case, quirk):
     """Hand-edited tables reach each bug-compatible quirk; the host
@@ -237,7 +292,100 @@ def test_quirks_match_jax_machine(da, wave, case, quirk):
     _assert_equal_jax(_decoded(host), _jax(tok, *inputs))
     assert _same(host, run_machine(*_args(tables_from_tokenizer(tok, "cpu"),
                                           *inputs), form="general"))
+    assert _same(host, _host(tok, *inputs, spread=SPREAD))
     assert not _same(host, _host(da, *inputs))
+
+
+@pytest.mark.parametrize("spread", [0, SPREAD])
+def test_entry_at_a_separate_slot_matches_jax_machine(da, wave, spread):
+    """A lane may enter at any slot.  At a separate one, whose base word
+    is its representative's id r, JAX reads the lane's first row from r
+    as a base (``base & RESTBIT`` whatever the bit); K1 reads it from
+    the original base array, not from the pair's word (a hop index).
+    A separate slot owns no cell, so the edit hands it the cells at r +
+    a for every symbol a: one slot a representative.  Entering at the
+    representatives instead changes the result."""
+    meta, lengths = wave
+    B = len(lengths)
+    tok = copy.copy(da)
+    base = np.asarray(da.base, np.uint32)
+    check = np.array(da.check, np.uint32)
+    n, size = len(base), int(check[1] & RESTBIT)
+    sep = np.flatnonzero(base & np.uint32(FIRSTBIT))
+    reps, first = np.unique(base[sep] & np.uint32(RESTBIT), return_index=True)
+    slots = sep[first]
+    for r, s in zip(reps.astype(np.int64), slots):
+        cells = r + np.arange(1, max(da.sigma.values()) + 1)
+        cells = cells[(cells < n) & (cells <= size)]
+        check[cells] = (check[cells] & np.uint32(FIRSTBIT)) | np.uint32(s)
+    tok.check = check
+    rng = np.random.default_rng(SEED + 3)
+    pick = rng.integers(0, len(slots), B)
+    ok = (rng.random(B) < 0.5).astype(np.int64) << 30
+    stops = rng.random(B) < 0.3
+    max_steps = 2 * meta.shape[1] + 64
+    entries = (slots[pick] | ok).astype(np.int32)
+    host = _host(tok, meta, lengths, entries, stops, max_steps, spread=spread)
+    _assert_equal_jax(_decoded(host),
+                      _jax(tok, meta, lengths, entries, stops, max_steps))
+    at_rep = (reps[pick].astype(np.int64) | ok).astype(np.int32)
+    assert not _same(host, _host(tok, meta, lengths, at_rep, stops,
+                                 max_steps, spread=spread))
+
+
+@pytest.mark.parametrize("spread", [0, SPREAD])
+@pytest.mark.parametrize("quirk", ["none", "sep_rep", "rep_outside"])
+def test_hop_table_equals_transition_on_every_cell(da, quirk, spread):
+    """Where each cell sends a lane, read from the pairs and the hop
+    table as K1 reads them, equals ``rep.transition``'s target on every
+    cell, and the base K1 carries equals that target's base; the hop
+    table has one entry a distinct representative, or, spread, as many
+    copies of each as make ``spread`` entries, each representative's
+    cells dealt out to its copies in turn; the tables' check is the
+    pairs' second word."""
+    tok = da if quirk == "none" else _edited(da, quirk)[0]
+    tb = tables_from_tokenizer(tok, "cpu", spread)
+    base = np.asarray(tok.base, np.uint32)
+    n = len(base)
+    pairs = tb.pairs.numpy().view(np.uint32)
+    hop = tb.hop.numpy().view(np.uint32)
+    word = pairs[:, 0]
+    np.testing.assert_array_equal(pairs[:, 1], np.asarray(tok.check, np.uint32))
+    assert torch.equal(tb.arrays[1], tb.pairs[:, 1])
+    assert tb.arrays[1].data_ptr() == tb.pairs.data_ptr() + 4  # a view
+    sep = (word & np.uint32(FIRSTBIT)) != 0
+    np.testing.assert_array_equal(sep, (base & np.uint32(FIRSTBIT)) != 0)
+    j = np.where(sep, word & np.uint32(~FIRSTBIT & 0xFFFFFFFF), 0)
+    t_next = np.where(sep, hop[j, 0], np.arange(n, dtype=np.uint32))
+    b_next = np.where(sep, hop[j, 1], word & np.uint32(RESTBIT))
+    # every cell i as the target of the arc from state 0 on i - base(0)
+    b0 = int(base[0] & RESTBIT)
+    _, _, t_ref = transition(tb, torch.zeros(n, dtype=torch.int32),
+                             torch.from_numpy(np.arange(n) - b0).to(
+                                 torch.int32))
+    np.testing.assert_array_equal(t_next.astype(np.int64),
+                                  t_ref.numpy().astype(np.int64))
+    base_t = torch.from_numpy(base.view(np.int32))
+    np.testing.assert_array_equal(
+        b_next.astype(np.int64),
+        (_take(base_t, t_ref.long()) & RESTBIT).numpy().astype(np.int64))
+    reps = np.unique(base[sep] & np.uint32(RESTBIT))
+    n_hop = len(reps)
+    copies = -(-spread // n_hop) if spread else 1
+    assert hop.shape == (n_hop * copies, 2)
+    np.testing.assert_array_equal(hop, np.tile(hop[:n_hop], (copies, 1)))
+    np.testing.assert_array_equal(hop[:n_hop, 0], reps)
+    np.testing.assert_array_equal(pairs,
+                                  da_pairs(base, tok.check, spread)[0])
+    # each representative's cells are dealt out to its copies in turn
+    used = np.zeros((n_hop, copies), np.int64)
+    np.add.at(used, (j[sep] % n_hop, j[sep] // n_hop), 1)
+    assert (used.max(1) - used.min(1) <= 1).all()
+    if quirk == "rep_outside":
+        assert (hop[:n_hop, 0] >= n).sum() == 1
+        assert hop[:n_hop, 1][hop[:n_hop, 0] >= n].tolist() == [0]
+    if quirk == "sep_rep":
+        assert (base[hop[:n_hop, 0][hop[:n_hop, 0] < n]] >> 31).sum() > 0
 
 
 def test_probe_without_size_test_is_reached(da, wave, monkeypatch):
@@ -453,6 +601,43 @@ def test_wrapper_refuses_what_k1_does_not_take(da):
     assert out[2].sum() == 0 and kt.transduce_general.launches == before
 
 
+def _without_pairs(tb, how):
+    """``tb`` with its K1 form of the cells missing or malformed."""
+    return {
+        "no_pairs": lambda: dataclasses.replace(tb, pairs=None),
+        "no_hop": lambda: dataclasses.replace(tb, hop=None),
+        "short_pairs": lambda: dataclasses.replace(tb, pairs=tb.pairs[:-1]),
+        "hop_columns": lambda: dataclasses.replace(tb, hop=tb.hop[:, :1]),
+        "strided_pairs": lambda: dataclasses.replace(
+            tb, pairs=torch.stack([tb.pairs[:, 0], tb.pairs[:, 1]], 1)
+            .t().contiguous().t()),
+        "strided_hop": lambda: dataclasses.replace(
+            tb, hop=tb.hop.t().contiguous().t()),
+    }[how]()
+
+
+@pytest.mark.parametrize("how", ["no_pairs", "no_hop", "short_pairs",
+                                 "hop_columns", "strided_pairs",
+                                 "strided_hop"])
+def test_wrapper_refuses_a_double_array_without_its_pairs(da, how):
+    """K1 reads a double array's (word, check) pairs and hop table as
+    contiguous (n_cells, 2) and (m, 2) words: the general form and the
+    host build refuse tables without them, on every device; the same
+    values, contiguous, run."""
+    args = _small_args(da)
+    bad = _without_pairs(args[0], how)
+    for fn in (kt.transduce_general,
+               lambda *a: kt.transduce_host(*a, form="general")):
+        with pytest.raises(ValueError, match="pairs and hop table"):
+            fn(bad, *args[1:])
+    if how.startswith("strided"):
+        fixed = dataclasses.replace(bad, pairs=bad.pairs.contiguous(),
+                                    hop=bad.hop.contiguous())
+        assert _same(
+            _masked(kt.transduce_host(fixed, *args[1:], form="general")),
+            _masked(kt.transduce_general(*args)))
+
+
 def test_package_exports_every_jax_name():
     """Every name of ``datok_tpu.__all__`` resolves in the port, or has
     its recorded reason."""
@@ -468,7 +653,8 @@ def test_package_exports_every_jax_name():
 @pytest.mark.cuda
 def test_k1_da_matches_plain_machine_on_card(da, texts):
     """K1's double-array form against the plain machine on the card,
-    every quantity, and the engine launching only that form."""
+    every quantity, with the hop table as built and spread over many
+    entries, and the engine launching only that form."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (K1 has no CPU mode)")
     dev = torch.device("cuda")
@@ -478,15 +664,17 @@ def test_k1_da_matches_plain_machine_on_card(da, texts):
             *(torch.from_numpy(x).to(dev)
               for x in (meta, lengths, entries, stops)),
             2 * meta.shape[1] + 64)
-    before = kt.transduce_general.launches
-    k1 = kt.transduce_general(*args)
-    torch.cuda.synchronize()
-    assert kt.transduce_general.launches == before + 1
     plain = run_machine(*args, form="general")
-    keep = (torch.arange(k1[0].shape[1], device=dev)[None, :]
+    keep = (torch.arange(plain[0].shape[1], device=dev)[None, :]
             < plain[1][:, None])
-    assert torch.equal(torch.where(keep, k1[0], 0), plain[0])
-    assert _same(k1[1:], plain[1:])
+    for spread in (0, SPREAD):
+        before = kt.transduce_general.launches
+        k1 = kt.transduce_general(tables_from_tokenizer(da, dev, spread),
+                                  *args[1:])
+        torch.cuda.synchronize()
+        assert kt.transduce_general.launches == before + 1
+        assert torch.equal(torch.where(keep, k1[0], 0), plain[0])
+        assert _same(k1[1:], plain[1:])
     eng = dtt.BatchEngine(da, device=dev, engine="general")
     full, gen = kt.transduce.launches, kt.transduce_general.launches
     assert eng.tokenize_batch(texts) == [da.tokenize(t) for t in texts]

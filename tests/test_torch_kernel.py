@@ -158,8 +158,18 @@ def test_tables_from_tokenizer_bytes(kind):
     assert tb.kind == tok.type()
     assert len(tb.arrays) == len(rep.tables)
     for got, want in zip(tb.arrays, rep.tables):
-        assert got.dtype == torch.int32 and got.is_contiguous()
+        assert got.dtype == torch.int32
         assert got.numpy().view(np.uint32).tobytes() == want.tobytes()
+    # every array K1 reads is contiguous; a double array's check is the
+    # second word of K1's (word, check) pairs, not a second copy
+    if kind == "matok":
+        assert tb.arrays[0].is_contiguous()
+    else:
+        base, check = tb.arrays
+        assert (base.is_contiguous() and tb.pairs.is_contiguous()
+                and tb.hop.is_contiguous())
+        assert check.stride() == (2,)
+        assert check.data_ptr() == tb.pairs.data_ptr() + 4
     assert (tb.S, tb.eps, tb.unknown, tb.identity, tb.n_cells) == (
         rep.S, rep.eps, rep.unknown, rep.identity, rep.n_cells)
     if kind == "matok":
