@@ -105,7 +105,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    through ``run_corpus_distributed`` on phase 9's 64 files after a
    warm-up run: outputs byte-equal to phase 9's, the summed counters
    equal to phase 9's, and a second run skipping every file with no K1
-   launch.
+   launch;
+11. hot sets (the profiled sets of phases 3-8 stay fixed,
+   ``per_wave=False``): (a) phase 4's wave through
+   ``BatchEngine(tok, hot_size="auto", per_wave=True)``, every lane and
+   the bytes equal to phase 4's, with the census's ms (host), the
+   tagging's ms (CUDA events), the rung, the set's size and
+   ``last_cold_share``, then K1 in turns (means of 10) with no hot set,
+   the profiled ``"auto"`` set, the wave's own set and the wave's sets
+   at the ladder's rungs; (b) phase 8(a)'s stream through
+   ``tokenize_stream_pipelined`` on that engine (defaults), byte-equal
+   to the native oracle, with ``stats["census"] > 0`` and at least two
+   distinct wave sets launched (else phase 7's stream must show them),
+   its first wave's K1 in turns as in (a), and ``pipelined_mbps`` in
+   turns with ``per_wave=False`` on the same profiled set and with
+   ``hot_size=0``; (c) ``AdaptiveEngine`` with a narrow set of
+   ``ADAPTIVE_NARROW`` states on an in-profile and a rare-word-dense
+   wave of phase 4's shape: the cold rates and choices, ``cold_rate``'s
+   ms a call, the narrow and wide engines equal to the default one on
+   every lane and byte; (d) ``BatchEngine(tok, engine="hot")`` on phase
+   4's wave, equal to phase 4's bytes, K1 in turns against the default
+   engine.
 
 ``--profile`` adds a breakdown of the phase-4 wave after phase 4: each
 stage timed on the host clock between ``torch.cuda.synchronize()``
@@ -124,8 +144,8 @@ fails if the port loaded jax or any module of the JAX package.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its paths (K1: phase 4's wave,
-phase 8's timed runs, phase 9's first corpus run and phase 10's sharded
-runs, the two ranks' included; KF and KP: their probe scripts), its
+phase 8's timed runs, phase 9's first corpus run, phase 10's sharded
+runs, the two ranks' included, and phase 11's (a)-(d); KF and KP: their probe scripts), its
 largest error against the plain version, both times at its path's shape, its bound (the larger of its bytes over
 3.35 TB/s and, for K1, its instructions over the card's issue rate,
 from this run's inputs) and the time of one PyTorch call computing the
@@ -137,7 +157,8 @@ instructions a step and bounds on the waves of phases 4 and 8
 phase 10's numbers and phase 4b's (``da``: the double-array form's
 launches in that phase, its time, plain time, bound and instructions a
 step, the hop table's size and hop share, the pairs' build time and
-the spread table's time); KF's and KP's add their device time a call,
+the spread table's time) and phase 11's (``phase11``: each path's
+launches, times, cold shares and rates); KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -183,6 +204,17 @@ PROBE_H_L2 = 512  # KP's planes too large for shared memory: its L2 form
 # fewer than K of the steps' ring words at once
 PROBE_B_LOOP = 200_000
 N_SYMBOLS = 256  # rows of KF's planes
+# phase 11(c): the adaptive router's narrow set (states) and its two
+# samples, the texts of tests/test_adaptive.py:18-34 (in-profile prose:
+# the calibration text, which the profiled set is built from; and
+# rare-word-dense text)
+ADAPTIVE_NARROW = 256
+COLD_HEAVY = (
+    "Erreichbar via https://korap.ids-mannheim.de/?q=Baum&x=1 oder "
+    "korap[at]ids-mannheim[dot]de bzw. 10.0.10.51:8080. Vgl. "
+    "F.D.P.-Fraktion, Ba.-Wü., z.Zt. ca. 0,5% lt. Prof. Dr.-Ing. "
+    "Musterfrau-Häberle. ;-) ^_^ &#x2F; <a href='x.htm'>T</a> "
+) * 8
 # phase 7's stream: documents of 1-16 KB and long ones of 0.5-1.5 MB
 STREAM_DOCS = (2000, 1 << 10, 16 << 10)
 STREAM_LONG = (16, 1 << 19, 3 << 19)
@@ -1799,6 +1831,304 @@ def shard_phase(dtt, kt, eng, card, devices, texts, evs4, stream8, corpus9):
         "corpus_rank_wall_s": walls}
 
 
+def evs_equal(a, b, label):
+    """Raise unless two waves' per-lane (N, 3) events are equal."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{label}: {len(a)} lanes against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            raise RuntimeError(f"{label}: lane {i} differs")
+
+
+def set_turns(rest, tbs, n=10):
+    """K1 on the same inputs ``rest`` with each of the tables ``tbs``
+    (name -> tables, each with its own hot set), in turns: forward, then
+    backward, each the mean of ``n`` launches after a warm-up.  All must
+    give the same results.  Returns ({name: [ms, ms]}, {name: the
+    launch's cold share})."""
+    from datok_tpu_torch.kernels import transduce as kt
+
+    res = {k: kt.transduce(tb, *rest) for k, tb in tbs.items()}
+    first = next(iter(res.values()))
+    for k, r in res.items():
+        err = max_abs_err(first[:5], r[:5])
+        if err:
+            raise RuntimeError(f"K1 with the set {k!r} differs (max abs err "
+                               f"{err})")
+    times = {k: [] for k in tbs}
+    for k in list(tbs) + list(reversed(list(tbs))):
+        ms, _ = cuda_ms(lambda: kt.transduce(tbs[k], *rest), n=n, warmup=2)
+        times[k].append(ms)
+    share = {k: r[5][0].item() / max(r[5][1].item(), 1)
+             for k, r in res.items()}
+    return times, share
+
+
+def turns_line(times, share):
+    return "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms (cold "
+                     f"share {share[k]:.6f})" for k, v in times.items())
+
+
+def rung_tables(eng, counts):
+    """The tables with a wave's sets at the ladder's rungs below the
+    engine's own size: the census ``counts``' top states at each rung,
+    filled from the engine's set as ``wave_spec`` fills them, tagged on
+    the card (what a wave whose working set fit the rung would take)."""
+    from dataclasses import replace
+
+    from datok_tpu_torch.runtime.hot import census_cut, wave_hot_states
+    from datok_tpu_torch.runtime.rep import hot_table
+
+    out = {}
+    for rung in eng.WAVE_H_LADDER:
+        if rung < eng.hot_size:
+            _, kept = census_cut(counts, rung, ())
+            states = wave_hot_states(kept, eng.tables.hot.states[:rung])
+            out[f"rung {rung}"] = replace(eng.tables, hot=hot_table(
+                eng.tables, states, table_ok=True))
+    return out
+
+
+def rot_lanes(text, B, L):
+    """B lanes of ``text`` repeated and rotated by a per-lane offset, L
+    characters each."""
+    rep = text * (L // len(text) + 2)
+    return [rep[(i * 131) % len(text):][:L] for i in range(B)]
+
+
+def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
+                   card):
+    """Phase 11: per-wave hot sets, the adaptive router and
+    ``engine="hot"`` on the card.  (a) phase 4's wave through
+    ``BatchEngine(tok, hot_size="auto", per_wave=True)``: every lane and
+    the bytes equal to phase 4's, the census and tagging times, the
+    rung, the set and its cold share, and K1 in turns with no hot set,
+    the profiled set, the wave's own and its sets at the ladder's rungs
+    (:func:`rung_tables`); (b) phase 8(a)'s stream
+    pipelined on that engine: bytes equal to the oracle's, the census
+    timed, at least two distinct wave sets launched (phase 7's stream
+    if (a)'s waves all take one), the first wave's K1 in turns as in
+    (a), and pipelined MB/s in turns with ``per_wave=False`` on the same
+    profiled set and with ``hot_size=0``; (c) ``AdaptiveEngine`` with a
+    narrow set of ``ADAPTIVE_NARROW`` states: the cold rates and
+    choices of an in-profile and a rare-word-dense wave of phase 4's
+    shape, the narrow and wide engines byte-equal to the default engine
+    on both, ``cold_rate``'s time; (d) ``engine="hot"`` on phase 4's
+    wave, equal to phase 4's bytes, K1 in turns against the default
+    engine's.  Returns K1's launches on these paths and the numbers for
+    the kernels line."""
+    from dataclasses import replace
+
+    from datok_tpu_torch.runtime import engine as engine_mod
+    from datok_tpu_torch.runtime.hot import _CALIBRATION, census_cut
+    from datok_tpu_torch.runtime.rep import hot_table
+
+    tok = eng.tok
+    B, L = WAVE_SHAPE
+    launches = {}
+    out = {}
+    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    rest4 = (*to_cuda(meta, lengths), eng.max_steps_for(meta.shape[1]))
+
+    # (a) phase 4's wave with its own set
+    eng_pw = dtt.BatchEngine(tok, device="cuda", hot_size="auto",
+                             per_wave=True)
+    if not eng_pw.per_wave:
+        raise RuntimeError("phase 11 (a): the engine is not per-wave")
+    torch.cuda.synchronize()
+    kt.transduce.launches = 0
+    t0 = time.perf_counter()
+    evs = eng_pw.events_batch(texts, as_arrays=True)
+    got = format_wave(dtt, texts, evs)
+    wall = time.perf_counter() - t0
+    launches["a"] = kt.transduce.launches
+    if launches["a"] < 1:
+        raise RuntimeError("phase 11 (a): K1 was not launched")
+    evs_equal(evs, w4["evs"], "phase 11 (a) per-wave")
+    if got != w4["out"]:
+        raise RuntimeError("phase 11 (a): bytes differ from phase 4's")
+    cold_pw = eng_pw.last_cold_share
+    spec = eng_pw.wave_spec(texts)  # the cached set the launch took
+    if spec is eng_pw.tables.hot:
+        raise RuntimeError("phase 11 (a): the wave took the profiled set")
+    census = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        counts = eng_pw.census_states(texts)
+        census.append((time.perf_counter() - t0) * 1e3)
+    H, kept = census_cut(counts, eng_pw.hot_size, eng_pw.WAVE_H_LADDER)
+    tag_ms, _ = cuda_ms(lambda: hot_table(eng_pw.tables, spec.states,
+                                          table_ok=True), n=10, warmup=2)
+    n_census = int((counts > 0).sum())
+    from_census = int(np.isin(spec.states[1:], kept).sum())
+    print(f"phase 11 (a): phase 4's wave through BatchEngine(hot_size="
+          f"'auto', per_wave=True): {len(texts)} lanes and the bytes equal "
+          f"to phase 4's, {wall:.3f} s, K1 launches {launches['a']}; census "
+          f"{' / '.join(f'{c:.2f}' for c in census)} ms (host), tagging "
+          f"{tag_ms:.4f} ms (CUDA events, mean of 10); {n_census} states "
+          f"in the census, rung {H} (ladder {eng_pw.WAVE_H_LADDER}, own "
+          f"set {eng_pw.hot_size}), set {spec.H} states, {from_census} "
+          f"from the census and {spec.H - 1 - from_census} filled; "
+          f"last_cold_share {cold_pw:.6f} [{card}]", flush=True)
+    tbs = {"hot_size=0": eng.tables, "auto": eng_hot.tables,
+           "wave": replace(eng_pw.tables, hot=spec),
+           **rung_tables(eng_pw, counts)}
+    times4, share4 = set_turns(rest4, tbs)
+    print(f"phase 11 (a): K1 in turns on phase 4's wave (means of 10): "
+          f"{turns_line(times4, share4)} [{card}]", flush=True)
+    out["a"] = {"census_ms": census, "tag_ms": tag_ms, "rung": H,
+                "census_states": n_census, "set": spec.H,
+                "from_census": from_census, "last_cold_share": cold_pw,
+                "turns": times4, "cold_share": share4}
+
+    # (b) phase 8(a)'s stream pipelined on the per-wave engine
+    text_a, want_a = stream_a
+    text_b, want_b, _ = stream7
+    seen, first = [], []
+
+    def capture(tb, meta, lengths, entries, stops, max_steps, **kw):
+        seen.append(tb.hot)
+        if not first:  # a copy of the first wave, on its stream
+            first.append((tb, meta.clone(), lengths.clone(),
+                          entries.clone(), stops.clone(), max_steps))
+        return kt.transduce(tb, meta, lengths, entries, stops, max_steps,
+                            **kw)
+
+    wave_docs = []  # the documents of the first wave the census took
+    wave_spec = eng_pw.wave_spec
+
+    def keep_docs(docs, *a, **kw):
+        if not wave_docs:
+            wave_docs.append(list(docs))
+        return wave_spec(docs, *a, **kw)
+
+    engine_mod.transduce = capture
+    eng_pw.wave_spec = keep_docs
+    try:
+        for name, text, want in (("8(a)", text_a, want_a),
+                                 ("7", text_b, want_b)):
+            seen.clear()
+            st = {}
+            got = dtt.tokenize_stream_pipelined(
+                tok, text, dtt.NativeWriter(dtt.SIMPLE), engine=eng_pw,
+                stats=st).getvalue()
+            torch.cuda.synchronize()
+            check_same(f"phase 11 (b) {name}", got, want)
+            if not st["census"] > 0:
+                raise RuntimeError(f"phase 11 (b) {name}: no census time")
+            n_sets = len({id(h) for h in seen})
+            print(f"phase 11 (b): phase {name}'s stream pipelined on the "
+                  f"per-wave engine: byte-equal to the native oracle, "
+                  f"{st['waves']} waves, {n_sets} distinct wave sets "
+                  f"launched, census {st['census']:.4f} s "
+                  f"({st['census'] / max(st['waves'], 1) * 1e3:.2f} ms a "
+                  f"wave, host) [{card}]", flush=True)
+            out[f"b_{name}"] = {"waves": st["waves"], "sets": n_sets,
+                                "census_s": st["census"]}
+            if n_sets >= 2:
+                break
+    finally:
+        engine_mod.transduce = kt.transduce
+        del eng_pw.wave_spec
+    if n_sets < 2:
+        raise RuntimeError("phase 11 (b): fewer than two distinct wave sets")
+    tb8, *rest8 = first[0]
+    counts8 = eng_pw.census_states(wave_docs[0])
+    times8, share8 = set_turns(rest8, {"hot_size=0": eng.tables,
+                                       "auto": eng_hot.tables, "wave": tb8,
+                                       **rung_tables(eng_pw, counts8)})
+    B8, L8 = rest8[0].shape
+    print(f"phase 11 (b): K1 in turns on the first wave, B={B8} x L={L8}, "
+          f"its own set {tb8.hot.H} states (means of 10): "
+          f"{turns_line(times8, share8)} [{card}]", flush=True)
+    out["b_wave"] = {"B": int(B8), "L": int(L8), "set": tb8.hot.H,
+                     "turns": times8, "cold_share": share8}
+    n_bytes = len(text_a.encode("utf-8"))
+    engines = {"per_wave": eng_pw, "per_wave=False": eng_hot,
+               "hot_size=0": eng}
+    mbps = {k: [] for k in engines}
+    kt.transduce.launches = 0
+    for k in list(engines) + list(reversed(list(engines))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dtt.tokenize_stream_pipelined(
+            tok, text_a, dtt.NativeWriter(dtt.SIMPLE),
+            engine=engines[k]).getvalue()
+        torch.cuda.synchronize()
+        mbps[k].append(n_bytes / (time.perf_counter() - t0) / 1e6)
+        check_same(f"phase 11 (b) turns {k}", got, want_a)
+    launches["b"] = kt.transduce.launches
+    print(f"phase 11 (b): pipelined_mbps in turns on phase 8(a)'s stream "
+          f"(defaults): " + "; ".join(
+              f"{k} {' / '.join(f'{x:.2f}' for x in v)}"
+              for k, v in mbps.items()) + f", K1 launches {launches['b']} "
+          f"[{card}]", flush=True)
+    out["b_mbps"] = mbps
+
+    # (c) the adaptive router
+    t0 = time.perf_counter()
+    ae = dtt.AdaptiveEngine(tok, device="cuda", hot_size=ADAPTIVE_NARROW,
+                            per_wave=False)
+    waves = {"in-profile": rot_lanes(_CALIBRATION * 8, B, L),
+             "rare-word-dense": rot_lanes(COLD_HEAVY, B, L)}
+    rates, choice, rate_ms = {}, {}, {}
+    for k, w in waves.items():
+        rates[k] = ae.cold_rate(w)
+        choice[k] = ae.choose(w) is ae.wide and "wide" or "narrow"
+        if choice[k] != ae.last_choice or (
+                (rates[k] > ae.threshold) != (choice[k] == "wide")):
+            raise RuntimeError(f"phase 11 (c): {k}: choice {choice[k]} at "
+                               f"cold rate {rates[k]}")
+        t1 = time.perf_counter()
+        for _ in range(20):
+            ae.cold_rate(w)
+        rate_ms[k] = (time.perf_counter() - t1) / 20 * 1e3
+    kt.transduce.launches = 0
+    for k, w in waves.items():
+        want = eng.events_batch(w, as_arrays=True)
+        want_b = format_wave(dtt, w, want)
+        for side in ("narrow", "wide"):
+            e = getattr(ae, side)
+            got = e.events_batch(w, as_arrays=True)
+            evs_equal(got, want, f"phase 11 (c) {k} {side}")
+            if format_wave(dtt, w, got) != want_b:
+                raise RuntimeError(f"phase 11 (c): {k} {side}: bytes differ")
+    launches["c"] = kt.transduce.launches
+    print(f"phase 11 (c): AdaptiveEngine(hot_size={ADAPTIVE_NARROW}, "
+          f"per_wave=False), wide {ae.wide.hot_size} states, threshold "
+          f"{ae.threshold}, built in {time.perf_counter() - t0:.2f} s: "
+          + "; ".join(f"{k} wave ({B} x {L}) cold rate {rates[k]:.6f} -> "
+                      f"{choice[k]}, cold_rate {rate_ms[k]:.3f} ms a call"
+                      for k in waves)
+          + f"; narrow and wide equal to the default engine on every lane "
+          f"and byte, K1 launches {launches['c']} [{card}]", flush=True)
+    out["c"] = {"narrow": ADAPTIVE_NARROW, "wide": ae.wide.hot_size,
+                "cold_rate": rates, "choice": choice, "cold_rate_ms": rate_ms}
+
+    # (d) engine="hot"
+    eng_h = dtt.BatchEngine(tok, device="cuda", engine="hot")
+    if eng_h.engine != "hot" or eng_h.tables.hot is None:
+        raise RuntimeError("phase 11 (d): engine='hot' has no hot set")
+    kt.transduce.launches = 0
+    evs = eng_h.events_batch(texts, as_arrays=True)
+    launches["d"] = kt.transduce.launches
+    if launches["d"] < 1:
+        raise RuntimeError("phase 11 (d): K1 was not launched")
+    evs_equal(evs, w4["evs"], "phase 11 (d) engine='hot'")
+    if format_wave(dtt, texts, evs) != w4["out"]:
+        raise RuntimeError("phase 11 (d): bytes differ from phase 4's")
+    times_h, share_h = set_turns(rest4, {"default": eng.tables,
+                                         "hot": eng_h.tables})
+    print(f"phase 11 (d): engine='hot' ({eng_h.hot_size} states) on phase "
+          f"4's wave: every lane and the bytes equal to phase 4's, K1 "
+          f"launches {launches['d']}; K1 in turns (means of 10): "
+          f"{turns_line(times_h, share_h)} [{card}]", flush=True)
+    out["d"] = {"set": eng_h.hot_size, "turns": times_h,
+                "cold_share": share_h}
+    out["launches"] = launches
+    return sum(launches.values()), out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1863,7 +2193,9 @@ def main():
     t0 = time.perf_counter()
     tok = synth_tokenizer(seed=SEED)
     eng = dtt.BatchEngine(tok, device="cuda")
-    eng_hot = dtt.BatchEngine(tok, device="cuda", hot_size="auto")
+    # phases 3-10 hold the profiled set fixed; phase 11 takes wave sets
+    eng_hot = dtt.BatchEngine(tok, device="cuda", hot_size="auto",
+                              per_wave=False)
     print(f"model: synthetic, {tok.state_count} states x "
           f"{eng.tables.max_sym} symbols, {4 * eng.tables.n_cells / 1e6:.2f} MB, "
           f"built in {time.perf_counter() - t0:.2f} s; the auto hot set "
@@ -1919,7 +2251,8 @@ def main():
     if DE_MODEL and os.path.exists(DE_MODEL):
         tok_de = dtt.load_tokenizer_file(DE_MODEL)
         eng_de = dtt.BatchEngine(tok_de, device="cuda")
-        eng_de_hot = dtt.BatchEngine(tok_de, device="cuda", hot_size="auto")
+        eng_de_hot = dtt.BatchEngine(tok_de, device="cuda", hot_size="auto",
+                                     per_wave=False)
         B, L = WAVE_SHAPE
         run_wave(dtt, run_machine, eng_de, eng_de_hot,
                  [bench_lane(i, L) for i in range(B)], card, "DE model", chip)
@@ -1947,11 +2280,15 @@ def main():
     devices = None if torch.cuda.device_count() > 1 else ["cuda:0", "cuda:0"]
     launches10, shard10 = shard_phase(dtt, kt, eng, card, devices, texts,
                                       w4["evs"], stream8, corpus9)
+    # 11. per-wave hot sets, the adaptive router and engine="hot"
+    launches11, phase11 = wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4,
+                                         stream_a, stream7, card)
     launches = w4["launches"]
     cold = {"4": w4["cold_share"], "7": stream7[2], "8": cold8}
     print(f"K1 launches by path: phase 4 wave {launches}, phase 8 "
           f"{launches8}, phase 9 corpus {launches9}, phase 10 sharded "
-          f"{launches10} {json.dumps(shard10['launches'])}; with the auto hot set "
+          f"{launches10} {json.dumps(shard10['launches'])}, phase 11 "
+          f"{launches11} {json.dumps(phase11['launches'])}; with the auto hot set "
           f"({eng_hot.hot_size} states) the cold share by phase "
           f"{json.dumps(cold)}", flush=True)
 
@@ -1966,7 +2303,7 @@ def main():
         "route": "cuda",
         "source": "datok_tpu_torch/csrc/transduce.cu",
         "replaces": "datok_tpu/runtime/pallas_engine.py:384",
-        "launches": launches + launches8 + launches9 + launches10,
+        "launches": launches + launches8 + launches9 + launches10 + launches11,
         "max_abs_err": max(err3, w4["err"]),
         "ms": w4["ms"],
         "plain_ms": w4["plain_ms"],
@@ -1984,6 +2321,7 @@ def main():
         "phase8_wave": wave8,
         "phase10": shard10,
         "da": da4b,
+        "phase11": phase11,
     }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

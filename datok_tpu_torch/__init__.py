@@ -14,6 +14,9 @@ unless the caller names another device.
     eng = BatchEngine(tok)                       # K1 on the card
     eng = BatchEngine(load_datok_file("tokenizer_de.datok"),
                       engine="general")          # K1 over base/check
+    eng = BatchEngine(tok, hot_size="auto")      # each wave its own hot set
+    eng = BatchEngine(tok, engine="hot")         # K1 with a profiled hot set
+    eng = AdaptiveEngine(tok, hot_size=128)      # narrow or wide set a batch
     eng = ShardedEngine(tok)                     # lanes over every card
     outs = eng.tokenize_batch(["Der alte Mann.", "..."])
     out = tokenize_stream(tok, stream_text, engine=eng).getvalue()
@@ -32,6 +35,7 @@ from .fsa.io import load_tokenizer_file
 from .fsa.matrix import MatrixTokenizer, load_matrix_file, parse_matrix
 from .parallel.distributed import run_corpus_distributed
 from .parallel.mesh import ShardedEngine
+from .runtime.adaptive import AdaptiveEngine
 from .runtime.corpus import CorpusRunner
 from .runtime.engine import BatchEngine
 from .runtime.events import (EV_SENT, EV_TEXT, EV_TOKEN,
@@ -51,6 +55,7 @@ __all__ = [
     "parse_foma",
     "parse_matrix",
     "parse_datok",
+    "AdaptiveEngine",
     "BatchEngine",
     "CorpusRunner",
     "DaTokenizer",

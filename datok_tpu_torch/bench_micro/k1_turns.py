@@ -18,7 +18,9 @@ up, each size down, as built).  It also counts the fewest instructions one pass 
 step loop issues (``kernels/sass.py`` on ``cuobjdump -sass``) and
 prints a digest of each form's outputs (events up to each lane's
 count, counts, ``bad``, exit rows, steps), so that two trees can be
-held equal.  It uses entry points that every version of the port
+held equal, and what ``BatchEngine(tok)`` with its defaults holds: its
+hot set's size, whether it takes per-wave sets, and the native censuses
+one ``events_batch`` of 1,024 of the wave's texts ran.  It uses entry points that every version of the port
 since the double-array form has, so two trees compare in one call, each
 in its own process, in turns (A, B, B, A)::
 
@@ -91,6 +93,19 @@ def main():
     tok = synth_tokenizer(seed=cs.SEED)
     eng = BatchEngine(tok, device="cuda")
     texts = cs.wave_texts(tok, *cs.WAVE_SHAPE, synth_text)
+    # the default engine's hot set and censuses (a tree from before
+    # per-wave sets has neither)
+    from datok_tpu_torch.runtime import engine as engine_mod
+
+    censuses = []
+    census = getattr(engine_mod, "native_state_census", None)
+    if census is not None:
+        engine_mod.native_state_census = (
+            lambda *a: censuses.append(1) or census(*a))
+    eng.events_batch(texts[:1024])
+    defaults = {"hot_size": eng.hot_size,
+                "per_wave": getattr(eng, "per_wave", False),
+                "censuses": len(censuses)}
     meta, lengths, _ = eng.encoder.encode_batch(texts)
     args = (eng.tables, *cs.to_cuda(meta, lengths),
             eng.max_steps_for(meta.shape[1]))
@@ -131,6 +146,7 @@ def main():
         "L": int(meta.shape[1]), "turns_ms": turns,
         "digest": {f: digest(fn()) for f, fn in runs.items()},
         "step_instr": step_instr, "spread_turns_ms": spread_turns,
+        "defaults": defaults,
     }), flush=True)
 
 

@@ -18,7 +18,9 @@ What the JAX module has and this one does not, and why:
   torch devices, ``devices``, one a shard;
 * ``kernel_bl``: K1 has no lane block (it runs one lane a thread), so
   the lane quantum is the shard count alone;
-* ``per_wave``: the port has no per-wave hot specs (ROADMAP B4).
+* ``per_wave``: forced off, as in the JAX module (its sharded call
+  closes over replicated tables): the shards run the engine's own hot
+  set, replicated to each device, and a wave's set is refused.
 """
 
 from __future__ import annotations
@@ -153,6 +155,7 @@ class ShardedEngine(BatchEngine):
         if len({d.type for d in devs}) != 1:
             raise ValueError(f"devices mix types: {devs}")
         super().__init__(tok, devs[0], **kwargs)
+        self.per_wave = False  # jax mesh.py:98-101
         self.devices = devs
         self.n_shards = len(devs)
         states = () if self.tables.hot is None else self.tables.hot.states
@@ -172,7 +175,11 @@ class ShardedEngine(BatchEngine):
 
     # -- the sharded launch -------------------------------------------
 
-    def _run(self, meta, lengths, entries, stops, max_steps: int):
+    def _run(self, meta, lengths, entries, stops, max_steps: int, spec=None):
+        if spec is not None and spec is not self.tables.hot:
+            raise NotImplementedError(
+                "per-wave hot sets are single-device machinery; the "
+                "sharded engine runs its own set (per_wave is forced off)")
         dev, n = self.device, self.n_shards
         B0, L = meta.shape
         pad = (-B0) % n

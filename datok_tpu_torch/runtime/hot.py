@@ -138,6 +138,77 @@ def profile_hot_states(tok, texts: Sequence[str], limit) -> np.ndarray:
     return np.array(hot[:limit], dtype=np.int64)
 
 
+def sample_texts(texts, budget: int = 262144):
+    """Round-robin document sample for native statistics walks
+    (census, cold rate): prefixes of ≤256 docs joined by newlines —
+    the '\n' re-grounds the walk at a boundary symbol; long documents
+    contribute an interior slice too (their vocabulary is not all in
+    the prefix).  Returns the joined str, or None for empty input.
+    (A copy of datok_tpu/runtime/jax_engine.py:743.)"""
+    n = len(texts)
+    if n == 0:
+        return None
+    take = max(256, budget // max(1, min(n, 256)))
+    step = max(1, n // 256)
+    parts = []
+    got = 0
+    for i in range(0, n, step):
+        t = texts[i]
+        if len(t) > 2 * take:
+            mid = len(t) // 2
+            parts.append(t[: take // 2])
+            parts.append(t[mid : mid + take - take // 2])
+        else:
+            parts.append(t[:take])
+        got += min(len(t), take)
+        if got >= budget:
+            break
+    return "\n".join(parts)
+
+
+def census_cut(counts: np.ndarray, H: int,
+               ladder: Sequence[int]) -> Tuple[int, np.ndarray]:
+    """The size and census states of a wave's hot set, by the rule of
+    ``BatchEngine.wave_spec`` (datok_tpu/runtime/jax_engine.py:1824-1850):
+    the states that cover 99.9% of the sampled fetches count ``n``; the
+    size is the smallest rung of ``ladder`` below ``H`` (the engine's own
+    set's size) that holds ``n`` states besides the root, else ``H``;
+    the census states, by count (ties by id), are trimmed to one less
+    than the size and returned sorted by id.  Returns ``(size,
+    states)``; the states are the cache key of the set."""
+    counts = np.asarray(counts)
+    states = np.flatnonzero(counts)
+    order = np.argsort(-counts[states], kind="stable")
+    cum = np.cumsum(counts[states][order])
+    n999 = int(np.searchsorted(cum, 0.999 * cum[-1]) + 1) if len(cum) else 1
+    for rung in ladder:
+        if rung < H and n999 <= rung - 1:
+            H = rung
+            break
+    if len(states) > H - 1:
+        states = states[order][: H - 1]
+    return H, np.sort(states)
+
+
+def wave_hot_states(census: np.ndarray, base: Sequence[int]) -> np.ndarray:
+    """The hot set of a wave, as ``HotSpec.for_wave`` builds it
+    (datok_tpu/runtime/jax_engine.py:1106-1132): the root first, then
+    the census states (:func:`census_cut`) other than the root, trimmed
+    to ``len(base) - 1``, then states of ``base`` (the engine's own set
+    cut to the wave's size, the root first) in its order, never
+    repeating a state or the root, up to ``len(base)`` states."""
+    base = np.asarray(base, dtype=np.int64)
+    H = len(base)
+    hs = np.asarray(census, dtype=np.int64)
+    hs = hs[(hs != 1) & (hs > 0)]
+    if len(hs) >= H - 1:
+        hs = hs[: H - 1]
+    else:
+        fill = base[~np.isin(base, hs) & (base != 1)]
+        hs = np.concatenate([hs, fill[: H - 1 - len(hs)]])
+    return np.concatenate([[1], hs]).astype(np.int64)
+
+
 def hot_capacity(max_sym: int) -> int:
     """The most hot states whose rows (4 bytes x ``max_sym`` each) fit in
     one block's shared memory and whose index fits the tag: 339 at the

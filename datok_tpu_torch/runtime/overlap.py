@@ -22,9 +22,15 @@ the stages.  Backpressure and buffer reuse come from a fixed ring of
 slots: a slot's buffers are reused only after its wave is consumed,
 which also guarantees that its copies and K1 launch have finished.
 
+On a per-wave engine (:attr:`BatchEngine.per_wave`) the prep thread
+censuses each wave's documents before it encodes them and launches K1
+with the wave's own hot set (:meth:`BatchEngine.wave_spec`; stats key
+``census``), as the JAX module does; the wave holds its set until it is
+consumed, after its launch has finished.
+
 What differs from the JAX module: K1 writes compact event rows, so
-there is no ``_compact_ys`` step; K1 reads the whole table, so there is
-no per-wave census or hot spec (the ``census`` stats key stays 0.0).
+there is no ``_compact_ys`` step; the port's encoder does not depend on
+the hot set, so a wave with its own set is encoded as any other.
 The lane placement is the JAX module's: on a sharded engine
 (:class:`~datok_tpu_torch.parallel.mesh.ShardedEngine`) the lanes are
 dealt over the shards by :func:`~datok_tpu_torch.parallel.mesh.balance_perm`.
@@ -66,11 +72,12 @@ from .writer import SIMPLE, TokenWriter
 
 class _Wave:
     __slots__ = ("tags", "docs", "handles", "slot", "events",
-                 "exits", "entries", "breaks", "inv", "cuts", "n_enc")
+                 "exits", "entries", "breaks", "inv", "cuts", "n_enc",
+                 "spec")
 
     def __init__(self, tags, docs, handles, slot, entries, breaks,
                  events=None, exits=None, inv=None, cuts=None,
-                 n_enc=0):
+                 n_enc=0, spec=None):
         self.tags = tags
         self.docs = docs
         self.handles = handles  # (ev, counts, bad, state, done event, cps)
@@ -82,6 +89,7 @@ class _Wave:
         self.inv = inv  # doc→lane map when length-sorted (else None)
         self.cuts = cuts  # per-doc: dispatched as interior-EOT cut
         self.n_enc = n_enc  # encoded lane count (docs + shape pads)
+        self.spec = spec  # the wave's hot set, held while K1 reads it
 
 
 class WaveResult:
@@ -284,8 +292,9 @@ def waves_pipelined(
     them.  An exception in either thread is raised to the caller.
 
     ``stats``: optional dict, filled with cumulative per-stage wall
-    seconds (``encode``, ``dispatch``, ``fetch``, ``decode``; ``census``
-    stays 0.0, see the module docstring), wave and document counts,
+    seconds (``encode``, ``dispatch``, ``fetch``, ``decode``, and
+    ``census``: choosing a per-wave engine's wave sets), wave and
+    document counts,
     ``repairs`` (host chain repairs) and ``long_docs``.
     """
     dev = engine.device
@@ -302,8 +311,8 @@ def waves_pipelined(
     if pack_len:
         items = _pack_items(items, pack_len)
     st = stats if stats is not None else {}
-    # "census" is kept for the JAX module's keys and stays 0.0: K1 reads
-    # the whole table, so there is no per-wave hot set to census
+    # "census": the prep thread's per-wave hot sets (0.0 unless
+    # engine.per_wave)
     for k in ("encode", "dispatch", "fetch", "decode", "census"):
         st.setdefault(k, 0.0)
     for k in ("waves", "docs", "repairs", "long_docs"):
@@ -346,6 +355,15 @@ def waves_pipelined(
                 slot = free.get()  # backpressure: ring of reusable slots
                 if stop.is_set():
                     return
+                # per-wave hot set: census a sample of this wave's
+                # documents (exact native walk) and tag the table for
+                # the wave's own working set, before encoding, as the
+                # JAX module does (jax_engine.wave_spec block comment)
+                wspec = None
+                if getattr(engine, "per_wave", False):
+                    t0 = _time.time()
+                    wspec = engine.wave_spec(docs)
+                    st["census"] += _time.time() - t0
                 t0 = _time.time()
                 # Shape bucketing: L and B padded to powers of two.  K1
                 # compiles nothing, but its event buffer is B x
@@ -433,7 +451,8 @@ def waves_pipelined(
                 t0 = _time.time()
                 with _on(dev, slot):
                     ev_d, counts_d, bad_d, state_d, _steps = (
-                        engine.run_raw_async(meta_h, lens_h, ents_h, stops_h))
+                        engine.run_raw_async(meta_h, lens_h, ents_h, stops_h,
+                                             wspec))
                     # no synchronize here: the fetch thread waits on this
                     # event, so the host goes on to encode the next wave
                     done = None
@@ -446,7 +465,7 @@ def waves_pipelined(
                     _Wave(tags, docs,
                           (ev_d, counts_d, bad_d, state_d, done, cps_layout),
                           slot, entries, breaks, inv=inv, cuts=cuts,
-                          n_enc=len(enc_docs))
+                          n_enc=len(enc_docs), spec=wspec)
                 )
         except BaseException as e:  # surfaced by the consumer
             err.append(e)

@@ -6,7 +6,9 @@ own numpy arrays (``tok.array``, or ``tok.base`` and ``tok.check``),
 reinterpreted as int32 so that torch can hold them: the port computes
 on the same bytes as the JAX package.  Bit tests therefore read
 ``FIRSTBIT`` (1<<31) as the sign bit.  A matrix model's tables may also
-carry K1's hot set (:class:`HotTable`, :func:`with_hot`).
+carry K1's hot set (:class:`HotTable`, :func:`with_hot`), which
+:func:`hot_table` tags on the device from the untagged table, so that a
+wave can take a set of its own.
 
 A matrix model's tables also carry what the full step (run skip and
 fused boundaries) reads of each state, one int32 word a state
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..fsa.io import FIRSTBIT, RESTBIT  # RESTBIT: state id / base offset
-from .hot import pack_hot
+from .hot import HOT_SHIFT, MAX_HOT
 
 # The per-state word of the full step (:func:`state_table`):
 ST_EPS_TGT = (1 << 28) - 1  # bits 0..27: the ε target where a boundary fuses
@@ -41,13 +43,16 @@ class HotTable:
     ``states`` (H,) state ids, hot index = position; ``table`` the whole
     table with tagged cells; ``rows`` the hot states' tagged rows, which
     K1 stages into shared memory; ``hot_of`` (S+1,) each state's hot
-    index + 1 (0 = cold); ``root_h`` the root's."""
+    index + 1 (0 = cold); ``root_h`` the root's; ``ready`` (on a card)
+    a CUDA event recorded after the tensors were written, which a
+    launch on another stream waits for."""
 
     states: np.ndarray
     table: torch.Tensor
     rows: torch.Tensor
     hot_of: torch.Tensor
     root_h: int
+    ready: Optional[object] = None
 
     @property
     def H(self) -> int:
@@ -260,27 +265,76 @@ def tables_from_tokenizer(tok, device, spread: int = 0) -> Tables:
     )
 
 
+def tags_fit(table: torch.Tensor) -> bool:
+    """Can the cells of ``table`` (untagged, int32) carry hot tags: no
+    cell has any of bits 20..30 set (``pack_hot``'s test)."""
+    return not bool((table & 0x7FF00000).any())
+
+
+def pack_hot_device(table: torch.Tensor, S: int, max_sym: int,
+                    states: Sequence[int], table_ok: Optional[bool] = None):
+    """:func:`datok_tpu_torch.runtime.hot.pack_hot` with torch ops on the
+    table's device: ``(tagged, rows, hot_of)`` as int32 tensors there,
+    bit for bit ``pack_hot``'s, or None where it gives None.  ``table``
+    is the untagged table as int32; ``table_ok`` is :func:`tags_fit` of
+    it when the caller knows it (the test reads the whole table and
+    waits for the device).  Nothing is written in place: the tagged
+    table is a new tensor."""
+    states = np.asarray(states, dtype=np.int64).reshape(-1)
+    H = len(states)
+    if (S >= 1 << HOT_SHIFT or H > MAX_HOT
+            or (H and (states.min() < 0 or states.max() > S))
+            or len(np.unique(states)) != H):
+        return None
+    if not (tags_fit(table) if table_ok is None else table_ok):
+        return None
+    dev = table.device
+    st = torch.from_numpy(states).to(dev)
+    hot_of = torch.zeros(S + 1, dtype=torch.int32, device=dev)
+    hot_of[st] = torch.arange(1, H + 1, dtype=torch.int32, device=dev)
+    target = table & 0x7FFFFFFF
+    inside = (table != 0) & (target <= S)
+    tag = torch.index_select(hot_of, 0, target.clamp_(max=S)) << HOT_SHIFT
+    tagged = table | tag.masked_fill_(~inside, 0)
+    n = tagged.numel()
+    idx = (torch.arange(max_sym, dtype=torch.int64, device=dev)[None, :] * S
+           + st[:, None]).reshape(-1)
+    rows = torch.zeros((H * max_sym + 3) // 4 * 4, dtype=torch.int32,
+                       device=dev)
+    if n:
+        rows[:H * max_sym] = torch.where(idx < n, tagged[idx.clamp(max=n - 1)],
+                                         0)
+    return tagged, rows, hot_of
+
+
+def hot_table(tb: Tables, states: Sequence[int],
+              table_ok: Optional[bool] = None) -> Optional[HotTable]:
+    """K1's hot set ``states`` for the matrix tables ``tb``, tagged on
+    their device from the untagged table (:func:`pack_hot_device`);
+    None where the tags do not fit."""
+    (table,) = tb.arrays
+    packed = pack_hot_device(table, tb.S, tb.max_sym, states, table_ok)
+    if packed is None:
+        return None
+    tagged, rows, hot_of = packed
+    states = np.asarray(states, dtype=np.int64).reshape(-1)
+    root = np.flatnonzero(states == 1)
+    ready = None
+    if tb.device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(tb.device))
+    return HotTable(states=states, table=tagged, rows=rows, hot_of=hot_of,
+                    root_h=int(root[0]) + 1 if len(root) else 0, ready=ready)
+
+
 def with_hot(tb: Tables, states: Sequence[int]) -> Tables:
     """``tb`` with the hot set ``states`` packed for K1; without one when
     ``states`` is empty, the model is not a matrix, or the tags do not
-    fit (:func:`datok_tpu_torch.runtime.hot.pack_hot` returns None).
-    The per-state words stay as they are: they hold state ids."""
+    fit (:func:`hot_table` returns None).  The per-state words stay as
+    they are: they hold state ids."""
     if tb.kind != "MATOK" or len(states) == 0:
         return replace(tb, hot=None)
-    (table,) = tb.arrays
-    raw = table.cpu().numpy().view(np.uint32)
-    packed = pack_hot(raw, tb.S, tb.max_sym, states)
-    if packed is None:
-        return replace(tb, hot=None)
-    tagged, rows, hot_of = packed
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(tb.device)
-
-    return replace(tb, hot=HotTable(
-        states=np.asarray(states, dtype=np.int64), table=put(tagged),
-        rows=put(rows), hot_of=put(hot_of),
-        root_h=int(hot_of[1]) if tb.S >= 1 else 0))
+    return replace(tb, hot=hot_table(tb, states))
 
 
 def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ machine over ``DoubleArrayRep``.
   ``jax_engine.BatchEngine(jax_twin(da), engine="general")``, and the
   engine with the host build in the place of its device machine.
 * The ``engine=`` routing: a failed conversion under ``"auto"``,
-  ``"pallas"``, ``"hot"``, ``"general"`` on a ``.matok`` model, and
+  ``"pallas"`` and ``"hot"`` (which otherwise converts and runs K1's
+  full step with a hot set), ``"general"`` on a ``.matok`` model, and
   ``ShardedEngine(..., engine="general")``.
 * The wrapper's refusals, the package's names against
   ``datok_tpu.__all__``, and K1 itself on a card (skipped without one).
@@ -69,14 +70,6 @@ EDGE = [
     "  -x --y 3,50 14:30 5.9.2018.", "ab~c þ ¤ 中文 😀!", "Ende.\x04\n",
     "\x04\x04", "a" * 280 + ".",
 ]
-
-# why a name of datok_tpu.__all__ has no counterpart (ROADMAP A)
-NOT_PORTED = {
-    "AdaptiveEngine": "routes waves between hot-set engines by their "
-                      "cold-fetch rate; K1 reads the whole table from L2, "
-                      "so no fetch is cold",
-}
-
 
 @pytest.fixture(scope="module")
 def da():
@@ -512,9 +505,17 @@ def test_auto_and_pallas_run_the_full_form_on_a_matrix(da, kind):
                                       eng.tables.lc_mask)
 
 
-def test_hot_and_unknown_engines_raise(da):
-    with pytest.raises(ValueError, match="_run_machine_hot"):
-        dtt.BatchEngine(da, device="cpu", engine="hot")
+def test_hot_and_unknown_engines_raise(da, texts):
+    """``engine="hot"`` converts a ``.datok`` model and runs K1's full
+    step with a profiled hot set; where the conversion fails it raises,
+    as the JAX engine does; an unknown engine raises."""
+    eng = dtt.BatchEngine(da, device="cpu", engine="hot")
+    assert eng.engine == "hot" and eng.tables.kind == "MATOK"
+    assert eng.hot_size > 0 and eng._kernel() is kt.transduce
+    assert eng.tokenize_batch(texts) == [da.tokenize(t) for t in texts]
+    with pytest.raises(RuntimeError, match="engine='hot' requires the "
+                       "dense matrix layout but to_matrix\\(\\) failed"):
+        dtt.BatchEngine(_no_matrix(da), device="cpu", engine="hot")
     with pytest.raises(ValueError, match="engine must be one of"):
         dtt.BatchEngine(da, device="cpu", engine="xla")
 
@@ -639,13 +640,11 @@ def test_wrapper_refuses_a_double_array_without_its_pairs(da, how):
 
 
 def test_package_exports_every_jax_name():
-    """Every name of ``datok_tpu.__all__`` resolves in the port, or has
-    its recorded reason."""
-    missing = [n for n in datok_tpu.__all__ if not hasattr(dtt, n)]
-    assert missing == sorted(NOT_PORTED)
-    assert set(NOT_PORTED) <= set(datok_tpu.__all__)
-    assert all(n in dtt.__all__ for n in datok_tpu.__all__
-               if n not in NOT_PORTED)
+    """Every name of ``datok_tpu.__all__`` is in the port's
+    ``__all__`` and resolves there, ``AdaptiveEngine`` included."""
+    assert [n for n in datok_tpu.__all__ if not hasattr(dtt, n)] == []
+    assert set(datok_tpu.__all__) <= set(dtt.__all__)
+    assert dtt.AdaptiveEngine is dtt.runtime.adaptive.AdaptiveEngine
 
 
 # ---- K1 on a card -------------------------------------------------------------

@@ -212,8 +212,9 @@ def test_corpus_runner_on_sharded_engine(tok, tmp_path):
 
 def test_cold_share_over_shards(tok, texts):
     """The hot set is replicated; the cold steps summed over the shards
-    equal the single engine's (16 lanes on 4 shards: no padding)."""
-    one = dtt.BatchEngine(tok, device="cpu", hot_size="auto")
+    equal the single engine's on the same set (16 lanes on 4 shards: no
+    padding; the sharded engine runs its own set, never a wave's)."""
+    one = dtt.BatchEngine(tok, device="cpu", hot_size="auto", per_wave=False)
     four = ShardedEngine(tok, devices=["cpu"] * 4, hot_size="auto")
     assert four.hot_size == one.hot_size > 0
     assert four.events_batch(texts[:16]) == one.events_batch(texts[:16])
