@@ -119,11 +119,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    distinct wave sets launched (else phase 7's stream must show them),
    its first wave's K1 in turns as in (a), and ``pipelined_mbps`` in
    turns with ``per_wave=False`` on the same profiled set and with
-   ``hot_size=0``; (c) ``AdaptiveEngine`` with a narrow set of
+   ``hot_size=0``, each engine's K1 launches counted from its own runs
+   (at least one a wave); (c) ``AdaptiveEngine`` with a narrow set of
    ``ADAPTIVE_NARROW`` states on an in-profile and a rare-word-dense
-   wave of phase 4's shape: the cold rates and choices, ``cold_rate``'s
-   ms a call, the narrow and wide engines equal to the default one on
-   every lane and byte; (d) ``BatchEngine(tok, engine="hot")`` on phase
+   wave of phase 4's shape: the cold rates and choices (one wave each
+   way), ``cold_rate``'s ms a call, the narrow and wide engines and the
+   router's ``events_batch`` (on the engine it chose) equal to the
+   default one on every lane and byte, each with its own launch count;
+   (d) ``BatchEngine(tok, engine="hot")`` on phase
    4's wave, equal to phase 4's bytes, K1 in turns against the default
    engine.
 
@@ -158,7 +161,8 @@ phase 10's numbers and phase 4b's (``da``: the double-array form's
 launches in that phase, its time, plain time, bound and instructions a
 step, the hop table's size and hop share, the pairs' build time and
 the spread table's time) and phase 11's (``phase11``: each path's
-launches, times, cold shares and rates); KF's and KP's add their device time a call,
+launches, read from that path's runs alone, times, cold shares and
+rates); KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -207,8 +211,9 @@ N_SYMBOLS = 256  # rows of KF's planes
 # phase 11(c): the adaptive router's narrow set (states) and its two
 # samples, the texts of tests/test_adaptive.py:18-34 (in-profile prose:
 # the calibration text, which the profiled set is built from; and
-# rare-word-dense text)
-ADAPTIVE_NARROW = 256
+# rare-word-dense text).  At 288 states their cold rates lie on either
+# side of the threshold, so one wave routes narrow and the other wide.
+ADAPTIVE_NARROW = 288
 COLD_HEAVY = (
     "Erreichbar via https://korap.ids-mannheim.de/?q=Baum&x=1 oder "
     "korap[at]ids-mannheim[dot]de bzw. 10.0.10.51:8080. Vgl. "
@@ -1884,8 +1889,8 @@ def rung_tables(eng, counts):
         if rung < eng.hot_size:
             _, kept = census_cut(counts, rung, ())
             states = wave_hot_states(kept, eng.tables.hot.states[:rung])
-            out[f"rung {rung}"] = replace(eng.tables, hot=hot_table(
-                eng.tables, states, table_ok=True))
+            out[f"rung {rung}"] = replace(eng.tables,
+                                         hot=hot_table(eng.tables, states))
     return out
 
 
@@ -1957,8 +1962,8 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
         counts = eng_pw.census_states(texts)
         census.append((time.perf_counter() - t0) * 1e3)
     H, kept = census_cut(counts, eng_pw.hot_size, eng_pw.WAVE_H_LADDER)
-    tag_ms, _ = cuda_ms(lambda: hot_table(eng_pw.tables, spec.states,
-                                          table_ok=True), n=10, warmup=2)
+    tag_ms, _ = cuda_ms(lambda: hot_table(eng_pw.tables, spec.states),
+                        n=10, warmup=2)
     n_census = int((counts > 0).sum())
     from_census = int(np.isin(spec.states[1:], kept).sum())
     print(f"phase 11 (a): phase 4's wave through BatchEngine(hot_size="
@@ -2047,22 +2052,30 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
     engines = {"per_wave": eng_pw, "per_wave=False": eng_hot,
                "hot_size=0": eng}
     mbps = {k: [] for k in engines}
-    kt.transduce.launches = 0
+    for k in engines:
+        launches[f"b {k}"] = 0
     for k in list(engines) + list(reversed(list(engines))):
+        st = {}
         torch.cuda.synchronize()
+        kt.transduce.launches = 0
         t0 = time.perf_counter()
         got = dtt.tokenize_stream_pipelined(
-            tok, text_a, dtt.NativeWriter(dtt.SIMPLE),
-            engine=engines[k]).getvalue()
+            tok, text_a, dtt.NativeWriter(dtt.SIMPLE), engine=engines[k],
+            stats=st).getvalue()
         torch.cuda.synchronize()
         mbps[k].append(n_bytes / (time.perf_counter() - t0) / 1e6)
+        n = kt.transduce.launches
         check_same(f"phase 11 (b) turns {k}", got, want_a)
-    launches["b"] = kt.transduce.launches
+        # each engine's own count: one launch at least for each wave
+        if n < max(st["waves"], 1):
+            raise RuntimeError(f"phase 11 (b) turns {k}: K1 launched {n} "
+                               f"times on {st['waves']} waves")
+        launches[f"b {k}"] += n
     print(f"phase 11 (b): pipelined_mbps in turns on phase 8(a)'s stream "
           f"(defaults): " + "; ".join(
-              f"{k} {' / '.join(f'{x:.2f}' for x in v)}"
-              for k, v in mbps.items()) + f", K1 launches {launches['b']} "
-          f"[{card}]", flush=True)
+              f"{k} {' / '.join(f'{x:.2f}' for x in v)} (K1 launches "
+              f"{launches[f'b {k}']})" for k, v in mbps.items())
+          + f" [{card}]", flush=True)
     out["b_mbps"] = mbps
 
     # (c) the adaptive router
@@ -2083,25 +2096,58 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
         for _ in range(20):
             ae.cold_rate(w)
         rate_ms[k] = (time.perf_counter() - t1) / 20 * 1e3
-    kt.transduce.launches = 0
+    if sorted(choice.values()) != ["narrow", "wide"]:
+        raise RuntimeError(f"phase 11 (c): the waves did not take both "
+                           f"routes: {choice}")
+    launched = []  # the hot set of each launch through the router
+
+    def spy(tb, *a, **kw):
+        launched.append(tb.hot)
+        return kt.transduce(tb, *a, **kw)
+
+    for k in ("narrow", "wide", "routed"):
+        launches[f"c {k}"] = 0
     for k, w in waves.items():
         want = eng.events_batch(w, as_arrays=True)
         want_b = format_wave(dtt, w, want)
         for side in ("narrow", "wide"):
             e = getattr(ae, side)
+            kt.transduce.launches = 0
             got = e.events_batch(w, as_arrays=True)
+            launches[f"c {side}"] += kt.transduce.launches
             evs_equal(got, want, f"phase 11 (c) {k} {side}")
             if format_wave(dtt, w, got) != want_b:
                 raise RuntimeError(f"phase 11 (c): {k} {side}: bytes differ")
-    launches["c"] = kt.transduce.launches
+        # the router's own entry point: it runs on the engine it chose
+        launched.clear()
+        engine_mod.transduce = spy
+        kt.transduce.launches = 0
+        try:
+            got = ae.events_batch(w)
+        finally:
+            engine_mod.transduce = kt.transduce
+        launches["c routed"] += kt.transduce.launches
+        chosen = getattr(ae, choice[k]).tables.hot
+        if (ae.last_choice != choice[k] or not launched
+                or any(h is not chosen for h in launched)):
+            raise RuntimeError(f"phase 11 (c): {k}: the router did not run "
+                               f"on the {choice[k]} engine")
+        evs_equal([np.asarray(e, dtype=np.int32).reshape(-1, 3)
+                   for e in got], want, f"phase 11 (c) {k} routed")
+    for k in ("narrow", "wide", "routed"):
+        if launches[f"c {k}"] < 2:
+            raise RuntimeError(f"phase 11 (c): K1 launched "
+                               f"{launches[f'c {k}']} times on the {k} path")
     print(f"phase 11 (c): AdaptiveEngine(hot_size={ADAPTIVE_NARROW}, "
           f"per_wave=False), wide {ae.wide.hot_size} states, threshold "
           f"{ae.threshold}, built in {time.perf_counter() - t0:.2f} s: "
           + "; ".join(f"{k} wave ({B} x {L}) cold rate {rates[k]:.6f} -> "
                       f"{choice[k]}, cold_rate {rate_ms[k]:.3f} ms a call"
                       for k in waves)
-          + f"; narrow and wide equal to the default engine on every lane "
-          f"and byte, K1 launches {launches['c']} [{card}]", flush=True)
+          + "; narrow, wide and the router's choice equal to the default "
+          f"engine on every lane and byte, K1 launches narrow "
+          f"{launches['c narrow']}, wide {launches['c wide']}, routed "
+          f"{launches['c routed']} [{card}]", flush=True)
     out["c"] = {"narrow": ADAPTIVE_NARROW, "wide": ae.wide.hot_size,
                 "cold_rate": rates, "choice": choice, "cold_rate_ms": rate_ms}
 

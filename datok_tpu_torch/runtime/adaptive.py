@@ -16,7 +16,9 @@ the narrow engine's hot set, measured by the exact native walk
 (``native_cold_rate``) over a document sample.  With the port's default
 ``hot_size=0`` the narrow engine has no hot set: then, as the JAX module
 does for an engine without a spec, the cold rate is 0.0 and the choice
-is always the narrow engine.  Per-wave sets (``BatchEngine(...,
+is always the narrow engine.  So it is where the narrow set already
+holds ``hot_capacity`` states: no wide engine could hold more, and a
+second tagged table of the same set would buy nothing.  Per-wave sets (``BatchEngine(...,
 per_wave=True)``, the default) supersede the router where a census is
 available, as in the JAX package.
 
@@ -71,12 +73,14 @@ class AdaptiveEngine:
         self.last_choice = "narrow"
         self.last_cold_rate = 0.0
         hot = self.narrow.tables.hot
-        if hot is not None:
+        if hot is not None and hot.H < hot_capacity(
+                self.narrow.tables.max_sym):
             mask = np.zeros(self.narrow.tables.S + 1, dtype=np.uint8)
             mask[hot.states] = 1
             self._hot_mask = mask
         else:
-            self._hot_mask = None  # no hot set: nothing to adapt
+            # no hot set, or the widest there is: nothing to adapt
+            self._hot_mask = None
 
     @property
     def wide(self) -> BatchEngine:

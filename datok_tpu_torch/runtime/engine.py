@@ -262,8 +262,7 @@ class BatchEngine:
             if np.array_equal(hot, own.states):
                 spec = own
             else:
-                # the cells took the engine's own set's tags
-                spec = hot_table(self.tables, hot, table_ok=True)
+                spec = hot_table(self.tables, hot)
             if len(self._wave_cache) > WAVE_CACHE:
                 self._wave_cache.clear()
             self._wave_cache[key] = spec

@@ -272,21 +272,25 @@ def tags_fit(table: torch.Tensor) -> bool:
 
 
 def pack_hot_device(table: torch.Tensor, S: int, max_sym: int,
-                    states: Sequence[int], table_ok: Optional[bool] = None):
+                    states: Sequence[int]):
     """:func:`datok_tpu_torch.runtime.hot.pack_hot` with torch ops on the
     table's device: ``(tagged, rows, hot_of)`` as int32 tensors there,
     bit for bit ``pack_hot``'s, or None where it gives None.  ``table``
-    is the untagged table as int32; ``table_ok`` is :func:`tags_fit` of
-    it when the caller knows it (the test reads the whole table and
-    waits for the device).  Nothing is written in place: the tagged
-    table is a new tensor."""
+    is the untagged table as int32.  Nothing is written in place: the
+    tagged table is a new tensor."""
+    if not tags_fit(table):
+        return None
+    return _tag_device(table, S, max_sym, states)
+
+
+def _tag_device(table: torch.Tensor, S: int, max_sym: int,
+                states: Sequence[int]):
+    """:func:`pack_hot_device` on a table whose tags are known to fit."""
     states = np.asarray(states, dtype=np.int64).reshape(-1)
     H = len(states)
     if (S >= 1 << HOT_SHIFT or H > MAX_HOT
             or (H and (states.min() < 0 or states.max() > S))
             or len(np.unique(states)) != H):
-        return None
-    if not (tags_fit(table) if table_ok is None else table_ok):
         return None
     dev = table.device
     st = torch.from_numpy(states).to(dev)
@@ -307,13 +311,15 @@ def pack_hot_device(table: torch.Tensor, S: int, max_sym: int,
     return tagged, rows, hot_of
 
 
-def hot_table(tb: Tables, states: Sequence[int],
-              table_ok: Optional[bool] = None) -> Optional[HotTable]:
+def hot_table(tb: Tables, states: Sequence[int]) -> Optional[HotTable]:
     """K1's hot set ``states`` for the matrix tables ``tb``, tagged on
     their device from the untagged table (:func:`pack_hot_device`);
-    None where the tags do not fit."""
+    None where the tags do not fit.  Tables that already hold a set
+    passed that test when it was built, so only a first set reads the
+    whole table for it (:func:`tags_fit`, which waits for the device)."""
     (table,) = tb.arrays
-    packed = pack_hot_device(table, tb.S, tb.max_sym, states, table_ok)
+    tag = pack_hot_device if tb.hot is None else _tag_device
+    packed = tag(table, tb.S, tb.max_sym, states)
     if packed is None:
         return None
     tagged, rows, hot_of = packed

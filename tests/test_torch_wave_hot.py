@@ -27,6 +27,8 @@ Every output is an integer or a byte, so every comparison is exact
 (tolerance 0).
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -44,8 +46,10 @@ from datok_tpu_torch.runtime.adaptive import (COLD_THRESHOLD, SAMPLE_CHARS,
                                               AdaptiveEngine)
 from datok_tpu_torch.runtime.encode import text_to_codepoints
 from datok_tpu_torch.runtime.oracle import transduce_events
+from datok_tpu_torch.runtime import rep as rep_mod
 from datok_tpu_torch.runtime.rep import (hot_table, pack_hot_device,
-                                         tables_from_tokenizer, tags_fit)
+                                         tables_from_tokenizer, tags_fit,
+                                         with_hot)
 from datok_tpu_torch.testing.synth import synth_datok, synth_text, synth_tokenizer
 from datok_tpu_torch.utils.native import native_cold_rate
 from torch_twins import jax_twin
@@ -256,7 +260,7 @@ def test_device_tagging_equals_pack_hot(big, size):
         assert hot.root_h == int(want[2][1])
 
 
-def test_device_tagging_refuses_what_pack_hot_refuses(big):
+def test_device_tagging_refuses_what_pack_hot_refuses(big, monkeypatch):
     tb = tables_from_tokenizer(big, "cpu")
     S, A = big.state_count, tb.max_sym
     array = np.asarray(big.array, dtype=np.uint32)
@@ -269,8 +273,16 @@ def test_device_tagging_refuses_what_pack_hot_refuses(big):
     assert hot_mod.pack_hot(bad, S, A, [1]) is None
     assert not tags_fit(table)
     assert pack_hot_device(table, S, A, [1]) is None
-    assert pack_hot_device(table, S, A, [1], table_ok=True) is not None
+    assert hot_table(replace(tb, arrays=(table,)), [1]) is None
     assert pack_hot_device(tb.arrays[0], 1 << 20, A, [1]) is None
+    # tables that hold a set passed the test when it was built: a wave's
+    # set does not read the whole table again
+    scans = []
+    monkeypatch.setattr(rep_mod, "tags_fit",
+                        lambda t: scans.append(1) or tags_fit(t))
+    own = with_hot(tb, [1, 2, 3])
+    assert own.hot is not None and len(scans) == 1
+    assert hot_table(own, [1, 4]) is not None and len(scans) == 1
 
 
 # ---- the per-wave engine -----------------------------------------------------
@@ -495,6 +507,20 @@ def test_adaptive_without_hot_set_is_narrow(tok):
         assert a0.choose(docs) is a0.narrow
         assert a0.last_cold_rate == 0.0 and a0.last_choice == "narrow"
     assert a0._wide is None
+
+
+@pytest.mark.parametrize("size", ["capacity", "auto"])
+def test_adaptive_at_capacity_is_narrow(big, size):
+    """A narrow set that already holds ``hot_capacity`` states (as
+    ``"auto"`` does at DE width) leaves nothing for a wide engine: the
+    router stays narrow at a cold rate of 0.0 and builds no wide one."""
+    cap = hot_mod.hot_capacity(171)
+    a = AdaptiveEngine(big, device="cpu",
+                       hot_size=cap if size == "capacity" else "auto")
+    assert a.narrow.hot_size == cap and a._hot_mask is None
+    assert a.choose([COLD_HEAVY] * 8) is a.narrow
+    assert a.last_cold_rate == 0.0 and a.last_choice == "narrow"
+    assert a._wide is None
 
 
 @pytest.mark.parametrize("docs", ["uniform", "cold_heavy", "novel"])
