@@ -128,7 +128,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    default one on every lane and byte, each with its own launch count;
    (d) ``BatchEngine(tok, engine="hot")`` on phase
    4's wave, equal to phase 4's bytes, K1 in turns against the default
-   engine.
+   engine;
+12. the port's benchmark (``datok_tpu_torch.bench``) in this process at
+   phase 4's shape, each row three timed runs after two warm-ups: uniform,
+   hetero, mixed, novel, the double array through ``"auto"`` and
+   ``engine="general"``, e2e, the pipelined stream at 8 MB and the
+   corpus on 16 files; every row's lanes, streams and files equal to
+   the native oracle, each row with its own K1 launches; its JSON line
+   is printed.
 
 ``--profile`` adds a breakdown of the phase-4 wave after phase 4: each
 stage timed on the host clock between ``torch.cuda.synchronize()``
@@ -148,7 +155,8 @@ fails if the port loaded jax or any module of the JAX package.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches on its paths (K1: phase 4's wave,
 phase 8's timed runs, phase 9's first corpus run, phase 10's sharded
-runs, the two ranks' included, and phase 11's (a)-(d); KF and KP: their probe scripts), its
+runs, the two ranks' included, phase 11's (a)-(d) and phase 12's rows
+but the double array's; KF and KP: their probe scripts), its
 largest error against the plain version, both times at its path's shape, its bound (the larger of its bytes over
 3.35 TB/s and, for K1, its instructions over the card's issue rate,
 from this run's inputs) and the time of one PyTorch call computing the
@@ -162,7 +170,8 @@ launches in that phase, its time, plain time, bound and instructions a
 step, the hop table's size and hop share, the pairs' build time and
 the spread table's time) and phase 11's (``phase11``: each path's
 launches, read from that path's runs alone, times, cold shares and
-rates); KF's and KP's add their device time a call,
+rates) and phase 12's (``phase12``: each row's launches and MB/s);
+KF's and KP's add their device time a call,
 KF's the per-step times of its driver's chain as graph replays and
 eager, the launches those replays ran (``graph_launches``, beside
 ``launches``, the wrapper's own count) and, with the select on, the
@@ -182,26 +191,18 @@ import warnings
 import numpy as np
 import torch
 
-# bench.py:78-86, the JAX package's benchmark text
-BENCH_TEXT = """Der Vorsitzende der Abk. hat gewählt. Gefunden auf wikipedia.org. Ich bin unter korap@ids-mannheim.de erreichbar.
-Unsere Website ist https://korap.ids-mannheim.de/?q=Baum. Unser Server ist 10.0.10.51. Zu 50.4% ist es sicher.
-Der Termin ist am 5.9.2018.
-Ich habe die readme.txt heruntergeladen.
-Ausschalten!!! Hast Du nicht gehört???
-Ich wohne in der Weststr. und Du? Kupietz und Schmidt [2018]: Korpuslinguistik. Dieses verf***** Kleid! Ich habe die readme.txt heruntergeladen.
-Er sagte: \"Es geht mir gut!\", daraufhin ging er. &quot;Das ist von C&A!&quot; Früher bzw. später ... Sie erreichte den 1. Platz!
-Archive:  Ich bin kein zip. D'dorf Ku'damm Lu'hafen M'gladbach W'schaft.
-Mach's macht's was'n ist's haste willste kannste biste kriegste."""
+from datok_tpu_torch.bench import (SEED, STREAM_DOCS, STREAM_LONG, STREAM_POOL,
+                                   bench_lane, check_same,
+                                   corpus_texts, format_wave, native_oracle,
+                                   stream_text, wave_texts)
+from datok_tpu_torch.kernels.sass import (ISSUE_PER_SM_CLOCK, bound_ms,
+                                          k1_bound, k1_kernel)
 
 # the reference DE model (tokenizer_de.matok) is not in the repository;
 # phase 5 runs when this variable names it
 DE_MODEL = os.environ.get("DATOK_DE_MODEL", "")
-SEED = 0
 CHECK_SHAPE = (4096, 256)  # (B, L) of the kernel-vs-plain phase
 WAVE_SHAPE = (32768, 1024)  # (B, L) of the main-path wave, bench.py:400-401
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (the data sheet)
-# thread-instructions an SM issues a clock: 4 schedulers, one warp each
-ISSUE_PER_SM_CLOCK = 4 * 32
 PROBE_SHAPE = (16384, 384, 64)  # (B, H, K) defaults of the TPU probes
 PROBE_H_L2 = 512  # KP's planes too large for shared memory: its L2 form
 # lanes at which KP's 256-thread blocks loop over further lanes and hold
@@ -220,9 +221,6 @@ COLD_HEAVY = (
     "F.D.P.-Fraktion, Ba.-Wü., z.Zt. ca. 0,5% lt. Prof. Dr.-Ing. "
     "Musterfrau-Häberle. ;-) ^_^ &#x2F; <a href='x.htm'>T</a> "
 ) * 8
-# phase 7's stream: documents of 1-16 KB and long ones of 0.5-1.5 MB
-STREAM_DOCS = (2000, 1 << 10, 16 << 10)
-STREAM_LONG = (16, 1 << 19, 3 << 19)
 
 
 def cuda_ms(fn, n=1, warmup=0):
@@ -257,61 +255,6 @@ def max_abs_err(a, b):
                for x, y in pairs)
 
 
-def bench_lane(i, L):
-    """BENCH_TEXT rotated by a per-lane offset, L characters long."""
-    off = (i * 131) % len(BENCH_TEXT)
-    rot = BENCH_TEXT[off:] + BENCH_TEXT[:off]
-    return (rot * (L // len(rot) + 1))[:L]
-
-
-def wave_texts(tok, B, L, synth_text):
-    """Synthetic documents of length L/4..L, rotated BENCH_TEXT lanes
-    and a few empty texts, interleaved."""
-    rng = np.random.default_rng(SEED)
-    n_syn = (B + 2) // 3
-    syn = iter(synth_text(tok, n_syn,
-                          [int(x) for x in rng.integers(L // 4, L + 1, n_syn)],
-                          seed=SEED + 1))
-    texts = []
-    for i in range(B):
-        if i % 997 == 500:
-            texts.append("")
-        elif i % 3 == 0:
-            texts.append(next(syn))
-        else:
-            texts.append(bench_lane(i, L))
-    return texts
-
-
-def bound_ms(n_bytes):
-    """The least time to move ``n_bytes`` at the card's memory rate."""
-    return n_bytes / HBM_BYTES_PER_S * 1e3
-
-
-def k1_bound(meta_args, res, n_states, step_instr, n_sm, clock_hz,
-             n_words=0):
-    """K1's bound on one launch: the larger of its bytes over the memory
-    rate and its instructions over the issue rate.  Bytes: each input
-    read once (the meta words of each lane's length, the lane vectors,
-    one 4-byte cell of each of the ``n_states`` states whose row the
-    walk reads, the full form's ``n_words`` per-state words) and each
-    output written once (the events each lane wrote, the lane vectors
-    and state rows, the two counts).
-    Instructions: the lanes' steps times ``step_instr``, the fewest one
-    pass of K1's step loop issues (its SASS), at 128 a clock on each of
-    ``n_sm`` SMs at ``clock_hz``.  Returns (ms, "bytes" or "operations",
-    bytes, bytes ms, steps, instructions ms)."""
-    _meta, lengths, _entries, _stops = meta_args
-    B = int(lengths.numel())
-    n = (4 * int(lengths.sum()) + 9 * B + 4 * n_states + 4 * n_words
-         + 4 * int(res[1].sum()) + (4 + 1 + 24 + 4) * B + 16)
-    steps = int(res[4].long().sum())
-    ops_ms = steps * step_instr / (n_sm * ISSUE_PER_SM_CLOCK * clock_hz) * 1e3
-    b_ms = bound_ms(n)
-    return (max(b_ms, ops_ms), "bytes" if b_ms >= ops_ms else "operations",
-            n, b_ms, steps, ops_ms)
-
-
 def k1_turns(args, tb_hot, tb_none, n=10):
     """K1 with no hot set and with the engine's, in turns (none, auto,
     auto, none), each the mean of ``n`` launches after a warm-up, on
@@ -330,23 +273,6 @@ def k1_turns(args, tb_hot, tb_none, n=10):
     z2, _ = cuda_ms(lambda: kt.transduce(tb_none, *rest), n=n, warmup=2)
     share = b[5][0].item() / max(b[5][1].item(), 1)
     return (z1, h1, h2, z2), share
-
-
-def k1_key(threads, full, da):
-    """The name of one instantiation of K1 in the printed numbers:
-    block size / form / layout."""
-    return (f"{threads}/{'full' if full else 'general'}/"
-            f"{'da' if da else 'matrix'}")
-
-
-def k1_kernel(B, n_sm, form="full", layout="matrix"):
-    """The instantiation of K1 that a launch of B lanes runs
-    (transduce.cu): its blocks take ceil(B / SMs) lanes rounded up to a
-    warp, at most 1024, and up to 256 run the 256-thread kernel; a
-    double array always runs the 256-thread one."""
-    per_sm = -(-B // n_sm)
-    small = min(-(-per_sm // 32) * 32, 1024) <= 256 or layout == "da"
-    return k1_key(256 if small else 1024, form == "full", layout == "da")
 
 
 def form_turns(args, label, chip, card, n_states, n=10):
@@ -447,7 +373,7 @@ def run_wave(dtt, run_machine, eng, eng_hot, texts, card, label, chip):
     kt.transduce.launches = kt.transduce_general.launches = 0
     t0 = time.perf_counter()
     evs = eng.events_batch(texts, as_arrays=True)
-    out = format_wave(dtt, texts, evs)
+    out = format_wave(texts, evs)
     wall = time.perf_counter() - t0
     launches = kt.transduce.launches
     if launches < 1:
@@ -575,7 +501,8 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     instructions a step and the bound, and the double-array form with a
     spread hop table; (e) phase 8(a)'s stream pipelined on the
     double-array engine.  Returns the ``da`` block of the ``kernels``
-    line and stream (a) with its native oracle output."""
+    line, stream (a) with its native oracle output, and the double
+    array."""
     from datok_tpu_torch.fsa.double_array import DaTokenizer
     from datok_tpu_torch.runtime.rep import da_pairs, tables_from_tokenizer
     from datok_tpu_torch.testing.synth import DE_N_ABBREV, synth_datok
@@ -626,7 +553,7 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     kt.transduce.launches = kt.transduce_general.launches = 0
     t0 = time.perf_counter()
     evs = eng_da.events_batch(texts, as_arrays=True)
-    out = format_wave(dtt, texts, evs)
+    out = format_wave(texts, evs)
     wall = time.perf_counter() - t0
     launches_b = kt.transduce_general.launches
     if launches_b < 1:
@@ -641,7 +568,7 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
         if not np.array_equal(x, y):
             raise RuntimeError(f"da (b): lane {i} differs from the matrix "
                                f"engine: {texts[i][:80]!r}")
-    check_same("da (b) matrix engine, general", format_wave(dtt, texts, evs_mg),
+    check_same("da (b) matrix engine, general", format_wave(texts, evs_mg),
                out)
     meta, lengths, _ = eng_da.encoder.encode_batch(texts)
     meta_m, lengths_m, _ = eng_mg.encoder.encode_batch(texts)
@@ -771,7 +698,7 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
     # (e) phase 8(a)'s stream, pipelined on the double-array engine
     t0 = time.perf_counter()
     text_a = "".join(t + "\x04\n" for t in texts)
-    want_a = native_oracle(dtt, eng, text_a)
+    want_a = native_oracle(eng, text_a)
     print(f"da (e): stream (a) of phase 8, {len(text_a.encode('utf-8'))} "
           f"bytes, {len(texts)} documents; its native oracle in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -811,21 +738,7 @@ def da_phase(dtt, kt, run_machine, eng, texts, texts3, w4, card, chip):
         "n_cells": tb.n_cells, "separate_slots": sep,
         "e2e_mbps": n_bytes / wall / 1e6, "stream_mbps": n_e / wall_e / 1e6,
     }
-    return block, (text_a, want_a)
-
-
-def format_wave(dtt, texts, evs):
-    """The wave's bytes through the native writer, from each lane's
-    (N, 3) events."""
-    counts = np.array([len(e) for e in evs], dtype=np.int32)
-    lens = np.array([len(t) for t in texts], dtype=np.int32)
-    offs = np.zeros(len(texts), dtype=np.int64)
-    np.cumsum(lens[:-1], out=offs[1:])
-    cps = np.frombuffer("".join(texts).encode("utf-32-le"), dtype="<u4")
-    writer = dtt.NativeWriter(dtt.SIMPLE)
-    writer.feed_wave(np.concatenate(evs), counts, cps.astype(np.int32), offs,
-                     lens)
-    return writer.getvalue()
+    return block, (text_a, want_a), da
 
 
 def profile_wave(dtt, eng, texts, card, reps=3):
@@ -1148,31 +1061,6 @@ def probe_phase(card, dev):
             for name, source, replaces, n, extra, library in rows]
 
 
-def native_oracle(dtt, eng, text):
-    """The native oracle over ``text`` as one lane, formatted by the
-    native writer: the ground truth of every stream and file."""
-    from datok_tpu_torch.runtime.encode import text_to_codepoints
-    from datok_tpu_torch.utils.native import native_encode
-
-    metas = native_encode(eng.encoder, text.encode("utf-8"))[1]
-    ref = dtt.native_transduce_events(eng.tok, metas, as_array=True)
-    if ref is None:
-        raise RuntimeError("native oracle unavailable")
-    w = dtt.NativeWriter(dtt.SIMPLE)
-    w.feed(ref, text_to_codepoints(text))
-    return w.getvalue()
-
-
-def check_same(name, got, want):
-    """Raise, naming the first differing character, unless equal."""
-    if got != want:
-        i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
-                 min(len(got), len(want)))
-        raise RuntimeError(f"{name}: output differs from the native "
-                           f"oracle at character {i}: {got[i - 40:i + 40]!r}"
-                           f" vs {want[i - 40:i + 40]!r}")
-
-
 def host_profile(run, label, sort, card, n=25):
     """``cProfile`` of one ``run()`` (from Python 3.12 on it sees every
     thread, so a pipelined run's prep and fetch threads too)."""
@@ -1188,30 +1076,7 @@ def host_profile(run, label, sort, card, n=25):
     pstats.Stats(prof, stream=sys.stdout).sort_stats(sort).print_stats(n)
 
 
-def stream_text(tok, synth_text):
-    """Phase 7's ~32 MB stream: short documents ending in ``\\x04\\n``
-    with the long EOT-free ones among them, cut from a pool of seeded
-    synthetic text (generating 32 MB of it directly takes minutes)."""
-    rng = np.random.default_rng(SEED + 5)
-    # without the generator's own EOTs, so that documents keep their size
-    pool = "".join(synth_text(tok, 64, 1 << 16, seed=SEED + 6)).replace("\x04", " ")
-    n_docs, lo, hi = STREAM_DOCS
-    n_long, llo, lhi = STREAM_LONG
-
-    def cut(n):
-        o = int(rng.integers(0, len(pool) - n))
-        return pool[o:o + n]
-
-    docs = [cut(int(n)) + "\x04\n" for n in rng.integers(lo, hi + 1, n_docs)]
-    for i, n in zip(rng.choice(n_docs, n_long, replace=False),
-                    rng.integers(llo, lhi + 1, n_long)):
-        n = int(n)
-        body = "".join(cut(min(n, 1 << 16)) for _ in range(n // (1 << 16) + 1))
-        docs[i] = body[:n] + "\x04\n"
-    return "".join(docs)
-
-
-def stream_phase(dtt, kt, eng, eng_hot, card, synth_text, profile=False):
+def stream_phase(dtt, kt, eng, eng_hot, card, profile=False):
     """Phase 7: the stream through three surfaces, each byte-equal to
     the native oracle over the whole stream as one lane, then, untimed,
     ``tokenize_stream`` on ``eng_hot`` for its hot set's cold share;
@@ -1222,14 +1087,14 @@ def stream_phase(dtt, kt, eng, eng_hot, card, synth_text, profile=False):
 
     tok = eng.tok
     t0 = time.perf_counter()
-    text = stream_text(tok, synth_text)
+    text = stream_text(tok, STREAM_DOCS, STREAM_LONG, STREAM_POOL)
     data = text.encode("utf-8")
     long_docs = sum(len(d) > MAX_SEGMENT for d in text.split("\x04"))
     print(f"stream: {len(data)} bytes, {text.count(chr(4))} EOTs, {long_docs} "
           f"documents over MAX_SEGMENT, made in {time.perf_counter() - t0:.2f} s",
           flush=True)
     t0 = time.perf_counter()
-    want = native_oracle(dtt, eng, text)
+    want = native_oracle(eng, text)
     print(f"stream: native oracle (one lane) {len(data) / (time.perf_counter() - t0) / 1e6:.2f}"
           " MB/s on the host", flush=True)
 
@@ -1422,15 +1287,6 @@ def overlap_phase(dtt, kt, eng, eng_hot, card, wave_docs, stream7, chip,
     return launches, cold, wave8, (text_a, want_a)
 
 
-def cut_mid_word(text):
-    """``text`` without its final ``\\x04\\n``, cut inside its last word."""
-    body = text[:-2]
-    for i in range(len(body) - 1, 0, -1):
-        if body[i].isalpha() and body[i - 1].isalpha():
-            return body[:i]
-    return body + "Wor"
-
-
 def corpus_phase(dtt, kt, eng, card, wave_docs):
     """Phase 9: the synthetic model saved as a ``.matok``; 64 files cut
     from phase 8(a)'s documents (4 cut mid-word without EOT, 1 empty)
@@ -1446,12 +1302,7 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
     from datok_tpu_torch import cli
 
     n_files = 64
-    per = len(wave_docs) // n_files
-    texts = ["".join(t + "\x04\n" for t in wave_docs[i * per:(i + 1) * per])
-             for i in range(n_files)]
-    texts[7] = ""
-    for i in (13, 29, 41, 58):
-        texts[i] = cut_mid_word(texts[i])
+    texts = corpus_texts(wave_docs, n_files)
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
     with tempfile.TemporaryDirectory(prefix="datok-smoke-") as d:
         model = os.path.join(d, "synth.matok")
@@ -1491,7 +1342,7 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
                       encoding="utf-8") as fh:
                 outputs.append(fh.read())
             check_same(f"corpus {os.path.basename(f)}", outputs[-1],
-                       native_oracle(dtt, eng, t))
+                       native_oracle(eng, t))
         print(f"corpus: {json.dumps(stats)}", flush=True)
         print(f"corpus: {n_files} files, {n_bytes} bytes in {wall:.3f} s, "
               f"{n_bytes / wall / 1e6:.2f} MB/s; K1 launches {launches}; "
@@ -1517,7 +1368,7 @@ def corpus_phase(dtt, kt, eng, card, wave_docs):
             raise RuntimeError(f"cli tokenize --batch: exit code "
                                f"{r.returncode}: {r.stderr.decode()[-2000:]}")
         check_same("cli tokenize --batch", r.stdout.decode("utf-8"),
-                   native_oracle(dtt, eng, texts[13]))
+                   native_oracle(eng, texts[13]))
         print(f"cli: python -m datok_tpu_torch.cli tokenize --batch --device "
               f"{eng.device} on {os.path.basename(pick)} ({len(texts[13])} "
               f"characters, ends mid-word): stdout byte-equal to the native "
@@ -1944,7 +1795,7 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
     kt.transduce.launches = 0
     t0 = time.perf_counter()
     evs = eng_pw.events_batch(texts, as_arrays=True)
-    got = format_wave(dtt, texts, evs)
+    got = format_wave(texts, evs)
     wall = time.perf_counter() - t0
     launches["a"] = kt.transduce.launches
     if launches["a"] < 1:
@@ -2109,14 +1960,14 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
         launches[f"c {k}"] = 0
     for k, w in waves.items():
         want = eng.events_batch(w, as_arrays=True)
-        want_b = format_wave(dtt, w, want)
+        want_b = format_wave(w, want)
         for side in ("narrow", "wide"):
             e = getattr(ae, side)
             kt.transduce.launches = 0
             got = e.events_batch(w, as_arrays=True)
             launches[f"c {side}"] += kt.transduce.launches
             evs_equal(got, want, f"phase 11 (c) {k} {side}")
-            if format_wave(dtt, w, got) != want_b:
+            if format_wave(w, got) != want_b:
                 raise RuntimeError(f"phase 11 (c): {k} {side}: bytes differ")
         # the router's own entry point: it runs on the engine it chose
         launched.clear()
@@ -2161,7 +2012,7 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
     if launches["d"] < 1:
         raise RuntimeError("phase 11 (d): K1 was not launched")
     evs_equal(evs, w4["evs"], "phase 11 (d) engine='hot'")
-    if format_wave(dtt, texts, evs) != w4["out"]:
+    if format_wave(texts, evs) != w4["out"]:
         raise RuntimeError("phase 11 (d): bytes differ from phase 4's")
     times_h, share_h = set_turns(rest4, {"default": eng.tables,
                                          "hot": eng_h.tables})
@@ -2173,6 +2024,42 @@ def wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4, stream_a, stream7,
                 "cold_share": share_h}
     out["launches"] = launches
     return sum(launches.values()), out
+
+
+# phase 12: the benchmark's rows that run in the smoke, each this many
+# timed runs after two warm-ups, the pipelined stream at this many MB
+# and the corpus on this many files
+BENCH_ROWS = ("uniform", "hetero", "mixed", "novel", "datok", "datok_general",
+              "e2e", "pipelined", "corpus")
+BENCH_REPS, BENCH_E2E_MB, BENCH_FILES = 3, 8, 16
+
+
+def bench_phase(tok, da, card):
+    """Phase 12: the port's benchmark (``datok_tpu_torch.bench``) in this
+    process at phase 4's shape, on phase 4's model and phase 4b's double
+    array: the rows :data:`BENCH_ROWS` at reduced size.  Each row must
+    be correct and have launched K1 in its own runs (the benchmark
+    raises otherwise; checked again here); prints the benchmark's line.
+    Returns K1's full-form launches over the phase and the numbers for
+    the ``kernels`` line: each row's launches and MB/s."""
+    from datok_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    line = bench.Bench("cuda", *WAVE_SHAPE, reps=BENCH_REPS,
+                       e2e_mb=BENCH_E2E_MB, tok=tok, da=da,
+                       corpus_files=BENCH_FILES).run(BENCH_ROWS)
+    for name in BENCH_ROWS:
+        row = line["rows"][name]
+        if row["correct"] is not True or row["k1_launches"] < 1:
+            raise RuntimeError(f"phase 12: row {name}: {row}")
+    print(json.dumps(line), flush=True)
+    print(f"benchmark: rows {', '.join(BENCH_ROWS)} correct, each with its "
+          f"own K1 launches {json.dumps(line['k1_launches'])}, in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    full = sum(n for k, n in line["k1_launches"].items()
+               if k != "datok_general")
+    return full, {"k1_launches": line["k1_launches"],
+                  "mbps": {k: r["mbps"] for k, r in line["rows"].items()}}
 
 
 def main():
@@ -2217,21 +2104,16 @@ def main():
     # each of its instantiations, and what the bound needs of the card
     listing = sass.cuobjdump(build.TRANSDUCE.path)
     chip = {"n_sm": torch.cuda.get_device_properties(0).multi_processor_count,
-            "clock_hz": 1e6 * float(subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.max.sm",
-                 "--format=csv,noheader,nounits"], check=True,
-                capture_output=True, text=True).stdout.split()[0]),
-            "step_instr": {}}
+            "clock_hz": sass.max_sm_clock_hz(), "step_instr": {}}
     instances = sass.k1_instances(listing)
     want = {(t, f, False) for t in (256, 1024) for f in (False, True)}
     want.add((256, False, True))
     if set(instances) != want:
         raise RuntimeError(f"K1's instantiations {sorted(instances)}, "
                            f"expected {sorted(want)}")
-    for key, name in sorted(instances.items()):
-        fewest, static = sass.loop_min_instructions(listing, name)
-        chip["step_instr"][k1_key(*key)] = fewest
-        print(f"build: transduce: {k1_key(*key)}: step loop {static} "
+    for key, (fewest, static) in sass.k1_step_instructions(listing).items():
+        chip["step_instr"][key] = fewest
+        print(f"build: transduce: {key}: step loop {static} "
               f"instructions, {fewest} on its shortest pass (SASS)",
               flush=True)
 
@@ -2290,7 +2172,7 @@ def main():
         profile_wave(dtt, eng, texts, card)
 
     # 4b. the DE-size double array on K1's general form over base/check
-    da4b, stream_a = da_phase(dtt, kt, run_machine, eng, texts, texts3, w4,
+    da4b, stream_a, da = da_phase(dtt, kt, run_machine, eng, texts, texts3, w4,
                               card, chip)
 
     # 5. the DE model, if present
@@ -2309,7 +2191,7 @@ def main():
     probes = probe_phase(card, torch.device("cuda"))
 
     # 7. streaming at real size
-    stream7 = stream_phase(dtt, kt, eng, eng_hot, card, synth_text,
+    stream7 = stream_phase(dtt, kt, eng, eng_hot, card,
                            opts.profile)
 
     # 8. the overlapped pipeline, on phase 4's texts and phase 7's stream
@@ -2329,12 +2211,15 @@ def main():
     # 11. per-wave hot sets, the adaptive router and engine="hot"
     launches11, phase11 = wave_hot_phase(dtt, kt, eng, eng_hot, texts, w4,
                                          stream_a, stream7, card)
+    # 12. the port's benchmark, its rows at reduced size
+    launches12, phase12 = bench_phase(tok, da, card)
     launches = w4["launches"]
     cold = {"4": w4["cold_share"], "7": stream7[2], "8": cold8}
     print(f"K1 launches by path: phase 4 wave {launches}, phase 8 "
           f"{launches8}, phase 9 corpus {launches9}, phase 10 sharded "
           f"{launches10} {json.dumps(shard10['launches'])}, phase 11 "
-          f"{launches11} {json.dumps(phase11['launches'])}; with the auto hot set "
+          f"{launches11} {json.dumps(phase11['launches'])}, phase 12 "
+          f"{launches12} {json.dumps(phase12['k1_launches'])}; with the auto hot set "
           f"({eng_hot.hot_size} states) the cold share by phase "
           f"{json.dumps(cold)}", flush=True)
 
@@ -2349,7 +2234,8 @@ def main():
         "route": "cuda",
         "source": "datok_tpu_torch/csrc/transduce.cu",
         "replaces": "datok_tpu/runtime/pallas_engine.py:384",
-        "launches": launches + launches8 + launches9 + launches10 + launches11,
+        "launches": (launches + launches8 + launches9 + launches10
+                     + launches11 + launches12),
         "max_abs_err": max(err3, w4["err"]),
         "ms": w4["ms"],
         "plain_ms": w4["plain_ms"],
@@ -2368,6 +2254,7 @@ def main():
         "phase10": shard10,
         "da": da4b,
         "phase11": phase11,
+        "phase12": phase12,
     }] + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -7,7 +7,9 @@ issues.  ``cuobjdump -sass`` lists what ``nvcc`` made of the step;
 through it can issue: every path through the body's forward branches is
 tried and the shortest taken, so the count is a lower bound for any
 step.  Instructions that a false predicate turns off still issue and
-count; ``NOP`` padding does not.
+count; ``NOP`` padding does not.  :func:`k1_bound` is K1's bound on a
+launch: the larger of its bytes over the memory rate and those
+instructions, a step each, over the card's issue rate.
 """
 
 from __future__ import annotations
@@ -134,6 +136,21 @@ def k1_instances(sass: str) -> dict:
     return out
 
 
+def k1_step_instructions(sass: str) -> dict:
+    """``{k1_key: (fewest, static)}``: :func:`loop_min_instructions` of
+    each of K1's instantiations in a listing."""
+    return {k1_key(*key): loop_min_instructions(sass, name)
+            for key, name in sorted(k1_instances(sass).items())}
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi``), in Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True,
+        capture_output=True, text=True).stdout.split()[0])
+
+
 def cuobjdump(lib_path: str) -> str:
     """``cuobjdump -sass`` of a built library (the CUDA toolkit's)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -141,3 +158,56 @@ def cuobjdump(lib_path: str) -> str:
         raise RuntimeError("cuobjdump not found")
     return subprocess.run([tool, "-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
+
+
+# ---- K1's bound ---------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (the data sheet)
+# thread-instructions an SM issues a clock: 4 schedulers, one warp each
+ISSUE_PER_SM_CLOCK = 4 * 32
+
+
+def bound_ms(n_bytes):
+    """The least time to move ``n_bytes`` at the card's memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def k1_key(threads, full, da):
+    """The name of one instantiation of K1 in the printed numbers:
+    block size / form / layout."""
+    return (f"{threads}/{'full' if full else 'general'}/"
+            f"{'da' if da else 'matrix'}")
+
+
+def k1_kernel(B, n_sm, form="full", layout="matrix"):
+    """The instantiation of K1 that a launch of B lanes runs
+    (transduce.cu): its blocks take ceil(B / SMs) lanes rounded up to a
+    warp, at most 1024, and up to 256 run the 256-thread kernel; a
+    double array always runs the 256-thread one."""
+    per_sm = -(-B // n_sm)
+    small = min(-(-per_sm // 32) * 32, 1024) <= 256 or layout == "da"
+    return k1_key(256 if small else 1024, form == "full", layout == "da")
+
+
+def k1_bound(meta_args, res, n_states, step_instr, n_sm, clock_hz,
+             n_words=0):
+    """K1's bound on one launch: the larger of its bytes over the memory
+    rate and its instructions over the issue rate.  Bytes: each input
+    read once (the meta words of each lane's length, the lane vectors,
+    one 4-byte cell of each of the ``n_states`` states whose row the
+    walk reads, the full form's ``n_words`` per-state words) and each
+    output written once (the events each lane wrote, the lane vectors
+    and state rows, the two counts).
+    Instructions: the lanes' steps times ``step_instr``, the fewest one
+    pass of K1's step loop issues (its SASS), at 128 a clock on each of
+    ``n_sm`` SMs at ``clock_hz``.  Returns (ms, "bytes" or "operations",
+    bytes, bytes ms, steps, instructions ms)."""
+    _meta, lengths, _entries, _stops = meta_args
+    B = int(lengths.numel())
+    n = (4 * int(lengths.sum()) + 9 * B + 4 * n_states + 4 * n_words
+         + 4 * int(res[1].sum()) + (4 + 1 + 24 + 4) * B + 16)
+    steps = int(res[4].long().sum())
+    ops_ms = steps * step_instr / (n_sm * ISSUE_PER_SM_CLOCK * clock_hz) * 1e3
+    b_ms = bound_ms(n)
+    return (max(b_ms, ops_ms), "bytes" if b_ms >= ops_ms else "operations",
+            n, b_ms, steps, ops_ms)

@@ -48,6 +48,9 @@ ENGINES = ("auto", "pallas", "general", "hot")
 # wave sets a cache holds before it starts anew (jax_engine.py:1857)
 WAVE_CACHE = 16
 
+# the lane vectors' dtypes, for defaults made on the device
+_TORCH_DTYPE = {np.int32: torch.int32, np.bool_: torch.bool}
+
 
 class BatchEngine:
     """Batched tokenization of many texts as parallel lanes.
@@ -311,9 +314,7 @@ class BatchEngine:
             cold_total=self._cold_total)
         return tuple(out)
 
-    def run_raw_device(self, meta: np.ndarray, lengths: np.ndarray,
-                       entries: Optional[np.ndarray] = None,
-                       stops: Optional[np.ndarray] = None,
+    def run_raw_device(self, meta, lengths, entries=None, stops=None,
                        spec: Optional[HotTable] = None):
         """Run the device machine on one wave; returns device tensors
         ``(events (B, max_steps), counts, bad, state (B, 6), steps)``
@@ -322,20 +323,30 @@ class BatchEngine:
         ``entries`` optionally sets per-lane packed entry contexts;
         ``stops`` marks lanes that cut at their end instead of running
         the EOF epilogue; ``spec`` is the wave's hot set
-        (:meth:`wave_spec`; None: the engine's own)."""
+        (:meth:`wave_spec`; None: the engine's own).  Each of ``meta``
+        and the lane vectors is a numpy array, copied to the engine's
+        device, or a tensor already there (int32; ``stops`` bool),
+        which the launch takes as it is, with no trip through the host
+        (the JAX engine's device arrays, jax_engine.py:1889); a tensor
+        on another device raises."""
         B = meta.shape[0]
-        if entries is None:
-            entries = np.ones(B, dtype=np.int32)
-        if stops is None:
-            stops = np.zeros(B, dtype=bool)
-        dev = self.device
+        dev = self.tables.device
 
-        def put(x, dtype):
+        def put(name, x, dtype, fill=0):
+            if x is None:
+                return torch.full((B,), fill, dtype=_TORCH_DTYPE[dtype],
+                                  device=dev)
+            if isinstance(x, torch.Tensor):
+                if x.device != dev:
+                    raise ValueError(f"{name} is on {x.device}, the engine "
+                                     f"on {dev}")
+                return x
             return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
 
-        return self._launch(put(meta, np.int32), put(lengths, np.int32),
-                            put(entries, np.int32), put(stops, np.bool_),
-                            spec)
+        return self._launch(put("meta", meta, np.int32),
+                            put("lengths", lengths, np.int32),
+                            put("entries", entries, np.int32, 1),
+                            put("stops", stops, np.bool_), spec)
 
     def run_raw_async(self, meta: torch.Tensor, lengths: torch.Tensor,
                       entries: torch.Tensor, stops: torch.Tensor,

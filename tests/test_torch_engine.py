@@ -107,6 +107,35 @@ def test_segment_over_max_raises(tok):
         eng.run_raw_device(meta, np.array([1], dtype=np.int32))
 
 
+@pytest.mark.parametrize("lanes", ["defaults", "given"])
+def test_run_raw_device_takes_tensors_on_its_device(tok, texts, lanes):
+    """Tensors already on the engine's device go to the launch as they
+    are and give the same ``(events, counts, bad, state, steps)`` as the
+    numpy arrays they hold; a tensor on another device raises."""
+    eng = BatchEngine(tok, device="cpu")
+    meta, lengths, _ = eng.encoder.encode_batch(texts)
+    entries, stops = (_entries_stops(tok, texts) if lanes == "given"
+                      else (None, None))
+    want = eng.run_raw_device(meta, lengths, entries, stops)
+    as_tensor = [None if x is None else torch.from_numpy(x)
+                 for x in (meta, lengths, entries, stops)]
+    got = eng.run_raw_device(*as_tensor)
+    masks = [torch.arange(r[0].shape[1])[None, :] < r[1][:, None]
+             for r in (want, got)]
+    assert torch.equal(want[0] * masks[0], got[0] * masks[1])
+    for w, g in zip(want[1:], got[1:]):
+        assert torch.equal(w, g)
+    assert want[2].sum() == 0 and want[1].sum() > 0
+    launched = []
+    real = eng._launch
+    eng._launch = lambda *a: launched.append(a) or real(*a)
+    eng.run_raw_device(*as_tensor)
+    assert launched[0][0] is as_tensor[0] and launched[0][1] is as_tensor[1]
+    on_meta = torch.from_numpy(meta).to("meta")
+    with pytest.raises(ValueError, match="meta is on meta"):
+        eng.run_raw_device(on_meta, lengths)
+
+
 @pytest.mark.parametrize("path", ["native", "numpy"])
 def test_decoder_fails_loud_and_paths_agree(monkeypatch, path):
     ev = np.array([[1 | 1 << 2 | 3 << 17, 2 | 3 << 2 | 3 << 17, 0],

@@ -1,9 +1,9 @@
 """The port never imports jax, nor anything of ``datok_tpu``: a fresh
 interpreter imports ``datok_tpu_torch`` with its stream, overlap,
-corpus, CLI, debug, hot-set, probe and parallel modules, tokenizes a
-wave (on one device and over two shards) and a stream (serial and
-overlapped) on the CPU and finds no jax module and
-no ``datok_tpu`` module loaded; and no source file of the port, nor
+corpus, CLI, debug, hot-set, probe, parallel and benchmark modules,
+tokenizes a wave (on one device and over two shards) and a stream
+(serial and overlapped) on the CPU and finds no jax module and no
+``datok_tpu`` module loaded; and no source file of the port, nor
 ``chip_smoke.py``, holds an import of ``datok_tpu``."""
 
 import ast
@@ -19,6 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = """
 import sys
 import datok_tpu_torch as dtt
+import datok_tpu_torch.bench
 import datok_tpu_torch.bench_micro.micro_ablate
 import datok_tpu_torch.bench_micro.micro_fused
 import datok_tpu_torch.bench_micro.micro_pallas

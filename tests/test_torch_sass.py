@@ -112,3 +112,43 @@ def test_k1_instances_by_template_arguments():
     assert S.k1_instances(text + _listing("_Z1kv", ["EXIT"])) == names
     with pytest.raises(ValueError, match="no instantiation"):
         S.k1_instances(_listing("_Z1kv", ["EXIT"]))
+
+
+def test_k1_step_instructions_by_key():
+    """Each instantiation's step loop, counted, under its printed key."""
+    text = (_listing("_ZN12_GLOBAL__N_116transduce_kernelILi256ELb1E"
+                     "LN2dt6LayoutE0EEEvN2dt5ModelEPK5uint4i", KERNEL)
+            + _listing("_ZN12_GLOBAL__N_116transduce_kernelILi256ELb0E"
+                       "LN2dt6LayoutE1EEEvN2dt5ModelEPK5uint4i", KERNEL[:3]
+                       + ["@P0 BRA 0x10", "EXIT"]))
+    assert S.k1_step_instructions(text) == {
+        "256/general/da": (3, 3), "256/full/matrix": (4, 7)}
+
+
+@pytest.mark.parametrize("B, n_sm, form, layout, want", [
+    (32768, 132, "full", "matrix", "256/full/matrix"),  # 249 lanes an SM
+    (65536, 132, "full", "matrix", "1024/full/matrix"),
+    (200_000, 132, "general", "matrix", "1024/general/matrix"),
+    (200_000, 132, "general", "da", "256/general/da"),  # always 256
+    (33793, 132, "full", "matrix", "1024/full/matrix"),  # 257 rounds to 288
+])
+def test_k1_kernel_picks_the_launchs_instantiation(B, n_sm, form, layout, want):
+    assert S.k1_kernel(B, n_sm, form, layout) == want
+
+
+def test_k1_bound_counts_bytes_and_instructions():
+    """Bytes: the meta of each lane's length, the lane vectors, a cell of
+    each state read, the per-state words and the outputs written;
+    instructions: the steps at 128 a clock on each SM."""
+    import torch
+
+    lengths = torch.tensor([10, 0, 6], dtype=torch.int32)
+    res = (None, torch.tensor([3, 0, 2], dtype=torch.int32), None, None,
+           torch.tensor([12, 1, 7], dtype=torch.int32))
+    ms, by, n, b_ms, steps, ops_ms = S.k1_bound(
+        (None, lengths, None, None), res, 5, 100, 2, 1e9, n_words=4)
+    assert n == 4 * 16 + 9 * 3 + 4 * 5 + 4 * 4 + 4 * 5 + 33 * 3 + 16
+    assert steps == 20 and by == "operations"
+    assert ops_ms == pytest.approx(20 * 100 / (2 * 128 * 1e9) * 1e3)
+    assert b_ms == pytest.approx(n / 3.35e12 * 1e3) == S.bound_ms(n)
+    assert ms == max(ops_ms, b_ms)
